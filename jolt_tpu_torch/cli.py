@@ -2,6 +2,8 @@
 
     python -m jolt_tpu_torch.cli surge-bench --nv 20 [--nv-hi 24]
         [--prover-runs 10] [--verifier-runs 50] [--device cuda|cpu]
+    python -m jolt_tpu_torch.cli prove-fib [--n 8] [--pcs mock|hyperkzg]
+        [--device cuda|cpu]
 
 `surge-bench` is the fork's headline benchmark (bench.rs:109-210), as
 jolt_tpu's `cli.py surge-bench` runs it: Surge XOR lookups with C = 4,
@@ -22,9 +24,14 @@ import torch
 
 from ._device import resolve_device
 from .commitment.hyperkzg import HyperKZG
+from .commitment.mock import MockCommitmentScheme
 from .field.spec import fr_spec
-from .instructions import XorInstruction
+from .instructions import AddInstruction, BneInstruction, XorInstruction
 from .lasso import SurgePreprocessing, surge_prove, surge_verify
+from .subtables.rv32i import (EqSubtable, IdentitySubtable,
+                              TruncateOverflowSubtable)
+from .vm.host import fibonacci_program, trace_program
+from .vm.rv32i_vm import mini_vm
 
 SURGE_C = 4
 SURGE_M = 1 << 16
@@ -88,6 +95,38 @@ def surge_bench(nv_list, prover_runs: int = 10, verifier_runs: int = 50,
         }
 
 
+def fib_vm(M: int = 1 << 8):
+    """The mini VM that proves fibonacci: ADD and BNE, C = 4, M = M."""
+    return mini_vm([AddInstruction, BneInstruction],
+                   [TruncateOverflowSubtable(32), IdentitySubtable(),
+                    EqSubtable()], M_mini=M)
+
+
+def prove_fib(n: int = 8, pcs_name: str = "mock", M: int = 1 << 8,
+              device=None):
+    """Trace fibonacci(n), prove it and verify the proof; returns the
+    timings (seconds) as a dict."""
+    dev = resolve_device(device)
+    vm = fib_vm(M)
+    steps, io, rows = trace_program(fibonacci_program(n), vm,
+                                    max_input_size=32, max_output_size=32)
+    if pcs_name == "hyperkzg":
+        pcs = HyperKZG.setup(vm.required_srs_len(io, steps, rows), device=dev)
+    else:
+        pcs = MockCommitmentScheme()
+    pre = vm.preprocess(rows, pcs, device=dev)
+    t0 = time.perf_counter()
+    proof, commitments, _, _ = vm.prove(io, steps, pre)
+    _sync(dev)
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vm.verify(pre, proof, commitments)
+    return {"fib_n": n, "trace_length": len(steps), "pcs": pcs_name,
+            "prove_seconds": prove_s,
+            "verify_seconds": time.perf_counter() - t0,
+            "device": device_name(dev)}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m jolt_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -98,7 +137,16 @@ def main(argv=None) -> None:
     sb.add_argument("--verifier-runs", type=int, default=50)
     sb.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    pf = sub.add_parser("prove-fib", help="prove + verify fibonacci(n) on "
+                        "the mini VM")
+    pf.add_argument("--n", type=int, default=8)
+    pf.add_argument("--pcs", choices=("mock", "hyperkzg"), default="mock")
+    pf.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.cmd == "prove-fib":
+        print(json.dumps(prove_fib(args.n, args.pcs, device=args.device)),
+              flush=True)
+        return
     nv_list = list(range(args.nv, (args.nv_hi or args.nv) + 1))
     for row in surge_bench(nv_list, args.prover_runs, args.verifier_runs,
                            args.device):

@@ -1,5 +1,6 @@
-"""KZG prover key over BN254 (reference: poly/commitment/kzg.rs): the SRS
-and the batch commit.
+"""Univariate KZG over BN254 (reference: poly/commitment/kzg.rs,
+jolt_tpu/commitment/kzg.py): the SRS, the batch commit, openings and the
+pairing check.
 
 * The SRS is g * tau^i for a tau drawn from a deterministic seed, kept in
   Jacobian form [16, N] per coordinate.  `srs_setup` reads the committed
@@ -9,6 +10,10 @@ and the batch commit.
   gather and a log-depth tree of Jacobian adds (K6).  It never writes into
   `fixtures/`.
 * commit = the bitplane batch MSM over the SRS prefix (curve/device.py).
+* open(B, u): the quotient q = (B - B(u)) / (X - u) without a sequential
+  synthetic division: q[j] = u^{-(j+1)} * sum_{i > j} b_i u^i, two power
+  tables and one suffix sum on the device.
+* verify: host pairing check e(C - v*g + u*W, g2) == e(W, beta_g2).
 """
 from __future__ import annotations
 
@@ -21,9 +26,11 @@ import numpy as np
 import torch
 
 from ..curve import device as cd
-from ..curve.bn254 import G1Affine, G1Jacobian
+from ..curve.bn254 import G1Affine, G1Jacobian, G2Affine
+from ..curve.pairing import pairing_product_is_one
 from ..field import device as fd
-from ..field.spec import fr_spec
+from ..field.host import FElt
+from ..field.spec import FieldSpec, fr_spec
 
 FR = fr_spec()
 SRS_SEED = 0x6A6F6C74
@@ -35,6 +42,19 @@ SRS_CHUNK = 1 << 18   # points per generation pass (bounds [16, 32, chunk])
 class KZGProverKey:
     g1_jac: tuple  # (X, Y, Z) device limb tensors [16, N] -- g * tau^i
     n: int
+
+
+@dataclass
+class KZGVerifierKey:
+    g1: G1Affine
+    g2: G2Affine
+    beta_g2: G2Affine  # g2 * tau
+
+
+def verifier_key(seed: int = SRS_SEED) -> KZGVerifierKey:
+    """The verifier key of the SRS drawn from `seed` (host G2 math)."""
+    g2 = G2Affine.generator()
+    return KZGVerifierKey(G1Affine.generator(), g2, g2.mul(srs_tau(seed)))
 
 
 def _fixed_base_table(base: G1Affine, c: int = 8, windows: int = 32):
@@ -145,3 +165,53 @@ def kzg_commit_batch(pk: KZGProverKey, polys: list) -> list[G1Affine]:
     """Batch commit: every polynomial's scalar bit-planes share one fold
     over the same SRS bases."""
     return cd.batch_msm_bitplane(pk.g1_jac, list(polys))
+
+
+def _powers_device(spec: FieldSpec, u: torch.Tensor, n: int) -> torch.Tensor:
+    """[1, u, u^2, ..., u^{n-1}] by log-doubling; u: Montgomery limbs [16]."""
+    table = fd.ones(spec, (1,), u.device)
+    cur = u[:, None]
+    while table.shape[-1] < n:
+        table = torch.cat([table, fd.fmul(spec, table, cur)], dim=-1)
+        cur = fd.fmul(spec, cur, cur)
+    return table[..., :n]
+
+
+def _quotient_coeffs(spec: FieldSpec, b: torch.Tensor, upow: torch.Tensor,
+                     uinv_pow: torch.Tensor) -> torch.Tensor:
+    """q[j] = u^{-(j+1)} * sum_{i >= j+1} b_i u^i, j = 0..n-2."""
+    suffix = fd.fsuffix_sum(spec, fd.fmul(spec, b, upow))[..., 1:]
+    return fd.fmul(spec, suffix, uinv_pow[..., 1:])
+
+
+def kzg_quotient(coeffs_mont: torch.Tensor, u: FElt) -> torch.Tensor:
+    """Coefficients of (B(X) - B(u)) / (X - u) (kzg.rs:258-275)."""
+    n, dev = coeffs_mont.shape[-1], coeffs_mont.device
+    upow = _powers_device(FR, fd.scalar_to_device(FR, u.v, dev), n)
+    uinv_pow = _powers_device(
+        FR, fd.scalar_to_device(FR, pow(u.v, -1, FR.p), dev), n)
+    return _quotient_coeffs(FR, coeffs_mont, upow, uinv_pow)
+
+
+def kzg_open_no_rem(pk: KZGProverKey, coeffs_mont: torch.Tensor,
+                    u: FElt) -> G1Affine:
+    """Commitment to (B(X) - B(u)) / (X - u) (kzg.rs:258-275)."""
+    return kzg_commit_batch(pk, [kzg_quotient(coeffs_mont, u)])[0]
+
+
+def kzg_verify(vk: KZGVerifierKey, commitment: G1Affine, u: FElt, v: FElt,
+               w: G1Affine) -> bool:
+    """Pairing check e(C - v*g + u*W, g2) == e(W, beta_g2)
+    (kzg.rs:277-296)."""
+    lhs = (commitment.to_jacobian()
+           .add(vk.g1.to_jacobian().mul((-v.v) % FR.p))
+           .add(w.to_jacobian().mul(u.v))).to_affine()
+    return pairing_product_is_one([(lhs, vk.g2), (w.neg(), vk.beta_g2)])
+
+
+def poly_eval_device(coeffs_mont: torch.Tensor, u: FElt) -> FElt:
+    """Univariate evaluation sum b_i u^i via a power-table dot product."""
+    n, dev = coeffs_mont.shape[-1], coeffs_mont.device
+    upow = _powers_device(FR, fd.scalar_to_device(FR, u.v, dev), n)
+    return FElt(fd.to_int(FR, fd.fsum(FR, fd.fmul(FR, coeffs_mont, upow),
+                                      axis=-1)), FR)

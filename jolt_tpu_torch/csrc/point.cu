@@ -1,4 +1,5 @@
-// K5 + K6: elementwise BN254 G1 point additions over Fq limb tensors.
+// K5 + K6 + K7: elementwise BN254 G1 point additions and doubling over Fq
+// limb tensors.
 //
 // K5 replaces jolt_tpu/curve/pallas_point.py::proj_cadd_pallas: the
 // complete projective addition for a = 0, b3 = 9 (Renes-Costello-Batina
@@ -9,15 +10,23 @@
 // 65-100), the tree step of SRS generation (commitment/kzg.py:73-92).
 // Outputs are coordinates, not unique residues, so both follow the
 // reference formulas step for step; every field op yields the reduced
-// value, so the limbs match jolt_tpu bit for bit.  `dbl_core` is the
-// dbl-2009-l doubling that K7 (jac_double_pallas) will launch on its own.
+// value, so the limbs match jolt_tpu bit for bit.
+// K7 replaces ::jac_double_pallas: `dbl_core`, the dbl-2009-l doubling
+// (a = 0, 7 Fq Montgomery products; Z = 0 stays at infinity), launched on
+// its own.  Neither package's prove path launches it: jolt_tpu reaches
+// jac_double_pallas only from jac_add's non-Pallas branch, where the batch
+// is below the Pallas threshold, and the port's jac_add (K6) computes the
+// doubling inside its own kernel.  chip_smoke.py holds K7 against its
+// plain version.
 //
-// Bound on the H100: bytes.  Six coordinates in and three out, 9 x 64 B
-// per point-op: 2^20 adds move 0.60 GB, 0.18 ms at 3.35 TB/s.  K5 does 12
-// Fq Montgomery products per add and K6 about 22 (the doubling is computed
-// and selected, as on the TPU), so both carry far more integer work per
-// byte than the field kernels.  The design keeps one point-op per thread
-// with every intermediate in registers and nothing in shared memory.
+// Bound on the H100: bytes.  K5/K6 read six coordinates and write three,
+// 9 x 64 B per point-op: 2^20 adds move 0.60 GB, 0.18 ms at 3.35 TB/s;
+// K7 reads three and writes three, 6 x 64 B per point.  K5 does 12 Fq
+// Montgomery products per add, K6 about 22 (the doubling is computed and
+// selected, as on the TPU) and K7 7, so all carry far more integer work
+// per byte than the field kernels.  The design keeps one point-op per
+// thread with every intermediate in registers and nothing in shared
+// memory.
 #include "field.cuh"
 
 namespace {
@@ -127,7 +136,7 @@ __device__ __forceinline__ Pt cadd_core(const Pt& P1, const Pt& P2,
 }
 
 struct PointArgs {
-  const int32_t* in[6];   // x1 y1 z1 x2 y2 z2
+  const int32_t* in[6];   // x1 y1 z1 x2 y2 z2 (K7: x1 y1 z1 only)
   long long ls[6];        // their limb strides
   int32_t* out[3];        // x3 y3 z3, limb stride o_ls
   long long o_ls;
@@ -139,18 +148,22 @@ point_kernel(PointArgs A, long long n, Field F) {
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += step) {
-    Pt P1, P2;
+    Pt P1, R;
     P1.X = jt::load_limbs(A.in[0] + i, A.ls[0]);
     P1.Y = jt::load_limbs(A.in[1] + i, A.ls[1]);
     P1.Z = jt::load_limbs(A.in[2] + i, A.ls[2]);
-    P2.X = jt::load_limbs(A.in[3] + i, A.ls[3]);
-    P2.Y = jt::load_limbs(A.in[4] + i, A.ls[4]);
-    P2.Z = jt::load_limbs(A.in[5] + i, A.ls[5]);
-    Pt R;
-    if constexpr (OP == 0) {
-      R = cadd_core(P1, P2, F);
+    if constexpr (OP == 2) {
+      R = dbl_core(P1.X, P1.Y, P1.Z, F);
     } else {
-      R = jac_add_core(P1, P2, F);
+      Pt P2;
+      P2.X = jt::load_limbs(A.in[3] + i, A.ls[3]);
+      P2.Y = jt::load_limbs(A.in[4] + i, A.ls[4]);
+      P2.Z = jt::load_limbs(A.in[5] + i, A.ls[5]);
+      if constexpr (OP == 0) {
+        R = cadd_core(P1, P2, F);
+      } else {
+        R = jac_add_core(P1, P2, F);
+      }
     }
     jt::store_limbs(A.out[0] + i, A.o_ls, R.X);
     jt::store_limbs(A.out[1] + i, A.o_ls, R.Y);
@@ -213,4 +226,14 @@ extern "C" int jt_jac_add(const int32_t* x1, const int32_t* y1,
                           void* stream) {
   return launch_point<1>(x1, y1, z1, x2, y2, z2, ox, oy, oz, n, ls_x1, ls_y1,
                          ls_z1, ls_x2, ls_y2, ls_z2, o_ls, field, stream);
+}
+
+// K7: (ox, oy, oz)[i] = 2 * (x, y, z)[i], Jacobian, a = 0; Z = 0 stays 0.
+extern "C" int jt_jac_double(const int32_t* x, const int32_t* y,
+                             const int32_t* z, int32_t* ox, int32_t* oy,
+                             int32_t* oz, long long n, long long ls_x,
+                             long long ls_y, long long ls_z, long long o_ls,
+                             const uint32_t* field, void* stream) {
+  return launch_point<2>(x, y, z, nullptr, nullptr, nullptr, ox, oy, oz, n,
+                         ls_x, ls_y, ls_z, 0, 0, 0, o_ls, field, stream);
 }

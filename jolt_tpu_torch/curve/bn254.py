@@ -1,8 +1,9 @@
-"""BN254 G1 host arithmetic (Python ints): the commit path's host tail and
-the oracle for the device point kernels.
+"""BN254 G1/G2 host arithmetic (Python ints): the commit path's host tail,
+the verifier's MSMs and pairing inputs, and the oracle for the device
+point kernels.
 
-Curve: y^2 = x^3 + 3 over Fq, generator (1, 2) (EIP-196).  G2 and the
-pairing wait for the port of HyperKZG's opening proof.
+Curve: y^2 = x^3 + 3 over Fq, generator (1, 2) (EIP-196); G2: y^2 = x^3 +
+3/(9+u) over Fq2 (EIP-197).
 """
 from __future__ import annotations
 
@@ -117,5 +118,117 @@ class G1Jacobian:
             if k & 1:
                 acc = acc.add(base)
             base = base.double()
+            k >>= 1
+        return acc
+
+
+def g1_msm_host(points: list[G1Affine], scalars: list[int]) -> G1Affine:
+    """Reference MSM (slow; oracle for the device Pippenger)."""
+    acc = G1Jacobian.identity()
+    for p, s in zip(points, scalars):
+        if not p.is_infinity and s % R_ORDER:
+            acc = acc.add(p.to_jacobian().mul(s))
+    return acc.to_affine()
+
+
+# --- G2 over Fq2 = Fq[u]/(u^2+1) --------------------------------------------
+
+def fq2_mul(a, b):
+    a0, a1 = a
+    b0, b1 = b
+    return ((a0 * b0 - a1 * b1) % Q, (a0 * b1 + a1 * b0) % Q)
+
+
+def fq2_add(a, b):
+    return ((a[0] + b[0]) % Q, (a[1] + b[1]) % Q)
+
+
+def fq2_sub(a, b):
+    return ((a[0] - b[0]) % Q, (a[1] - b[1]) % Q)
+
+
+def fq2_scalar(a, k):
+    return (a[0] * k % Q, a[1] * k % Q)
+
+
+def fq2_square(a):
+    return fq2_mul(a, a)
+
+
+def fq2_inv(a):
+    a0, a1 = a
+    norm_inv = pow((a0 * a0 + a1 * a1) % Q, -1, Q)
+    return (a0 * norm_inv % Q, (-a1 * norm_inv) % Q)
+
+
+def fq2_neg(a):
+    return ((-a[0]) % Q, (-a[1]) % Q)
+
+
+# standard BN254 G2 generator (EIP-197 ordering: c1*u + c0 given as (c0, c1))
+G2_GENERATOR_X = (
+    10857046999023057135944570762232829481370756359578518086990519993285655852781,
+    11559732032986387107991004021392285783925812861821192530917403151452391805634,
+)
+G2_GENERATOR_Y = (
+    8495653923123431417604973247489272438418190587263600148770280649306958101930,
+    4082367875863433681332203403145435568316851327593401208105741076214120093531,
+)
+
+
+@dataclass(frozen=True)
+class G2Affine:
+    x: tuple[int, int]
+    y: tuple[int, int]
+    is_infinity: bool = False
+
+    @staticmethod
+    def identity() -> "G2Affine":
+        return G2Affine((0, 0), (0, 0), True)
+
+    @staticmethod
+    def generator() -> "G2Affine":
+        return G2Affine(G2_GENERATOR_X, G2_GENERATOR_Y)
+
+    def neg(self) -> "G2Affine":
+        if self.is_infinity:
+            return self
+        return G2Affine(self.x, fq2_neg(self.y))
+
+    def is_on_curve(self) -> bool:
+        if self.is_infinity:
+            return True
+        # b' = 3 / (9 + u)
+        b = fq2_mul((3, 0), fq2_inv((9, 1)))
+        lhs = fq2_square(self.y)
+        rhs = fq2_add(fq2_mul(fq2_square(self.x), self.x), b)
+        return lhs == rhs
+
+    def add(self, other: "G2Affine") -> "G2Affine":
+        if self.is_infinity:
+            return other
+        if other.is_infinity:
+            return self
+        if self.x == other.x:
+            if self.y != other.y:
+                return G2Affine.identity()
+            # double
+            lam = fq2_mul(fq2_scalar(fq2_square(self.x), 3),
+                          fq2_inv(fq2_scalar(self.y, 2)))
+        else:
+            lam = fq2_mul(fq2_sub(other.y, self.y),
+                          fq2_inv(fq2_sub(other.x, self.x)))
+        x3 = fq2_sub(fq2_sub(fq2_square(lam), self.x), other.x)
+        y3 = fq2_sub(fq2_mul(lam, fq2_sub(self.x, x3)), self.y)
+        return G2Affine(x3, y3)
+
+    def mul(self, k: int) -> "G2Affine":
+        k %= R_ORDER
+        acc = G2Affine.identity()
+        base = self
+        while k:
+            if k & 1:
+                acc = acc.add(base)
+            base = base.add(base)
             k >>= 1
         return acc

@@ -10,8 +10,9 @@ Each bit plane of each scalar vector is one channel; the masked sums of
 all channels are folded on the device with the complete projective add
 (K5), and the per-bit sums are Horner-combined on the host.  Any order of
 group additions gives the same affine commitment, so the port keeps one
-fold for every size: accumulators [16, T, K] (K channels, T lanes) take
-the points T at a time, then a log-depth tree folds the T lanes.  T is
+fold for every size: the first T points are the accumulators [16, T, K]
+(K channels, T lanes), the rest are added T at a time, then a log-depth
+tree folds the T lanes.  T is
 chosen so that one K5 launch covers about 2^20 point-adds.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ from ..field import device as fd
 from ..field.spec import LIMB_BITS, fq_spec, fr_spec
 from ..utils.math import next_power_of_two
 from .bn254 import G1Affine, G1Jacobian, Q as Q_INT
-from .kernels import jac_add, proj_cadd  # noqa: F401  (re-exported)
+from .kernels import jac_add, jac_double, proj_cadd  # noqa: F401  (re-exported)
 
 FQ = fq_spec()
 FR = fr_spec()
@@ -61,16 +62,16 @@ def masked_fold(PX, PY, PZ, masks: torch.Tensor):
         PX, PY, PZ = (torch.cat([t, t.new_zeros((t.shape[0], pad))], dim=1)
                       for t in (PX, PY, PZ))
     one = arith.const_limbs(FQ, "r", PX.device)[:, None, None]
-    zero = torch.zeros((fd.L, T, K), dtype=torch.int32, device=PX.device)
-    acc = (zero, one.expand(fd.L, T, K).contiguous(), zero)
     mt = masks.T.contiguous()                                 # [n, K]
+    acc = None
     for j in range(steps):
         sl = slice(j * T, (j + 1) * T)
         m = mt[sl][None]                                      # [1, T, K]
-        pts = (torch.where(m, PX[:, sl, None], 0),
-               torch.where(m, PY[:, sl, None], one),
-               torch.where(m, PZ[:, sl, None], 0))
-        acc = proj_cadd(acc, tuple(t.contiguous() for t in pts))
+        pts = tuple(t.contiguous() for t in (
+            torch.where(m, PX[:, sl, None], 0),
+            torch.where(m, PY[:, sl, None], one),
+            torch.where(m, PZ[:, sl, None], 0)))
+        acc = pts if acc is None else proj_cadd(acc, pts)
     return proj_tail_fold(acc)
 
 

@@ -1,4 +1,5 @@
-"""G1 point kernels: complete projective add (K5) and Jacobian add (K6).
+"""G1 point kernels: complete projective add (K5), Jacobian add (K6) and
+Jacobian doubling (K7).
 
 Points are coordinate triples of Fq limb tensors [16, *b] in Montgomery
 form.  On CPU tensors each wrapper runs the plain PyTorch version beside
@@ -10,6 +11,7 @@ version on the card.
 | wrapper    | replaces (jolt_tpu/curve/pallas_point.py) | source        |
 | proj_cadd  | proj_cadd_pallas (K5)                     | csrc/point.cu |
 | jac_add    | jac_add_pallas (K6)                       | csrc/point.cu |
+| jac_double | jac_double_pallas (K7)                    | csrc/point.cu |
 """
 from __future__ import annotations
 
@@ -30,6 +32,10 @@ PROJ_CADD = nat.CudaKernel(
 JAC_ADD = nat.CudaKernel(
     "jac_add", "point", "jt_jac_add", _POINT_ARGS,
     "jolt_tpu/curve/pallas_point.py:252 jac_add_pallas")
+JAC_DOUBLE = nat.CudaKernel(
+    "jac_double", "point", "jt_jac_double",
+    [nat.vptr] * 6 + [nat.i64] * 5 + [nat.u32p, nat.vptr],
+    "jolt_tpu/curve/pallas_point.py:261 jac_double_pallas")
 
 
 def _mul(x, y):
@@ -140,13 +146,16 @@ def _check_points(name: str, ts) -> None:
     shape = ts[0].shape
     for t in ts:
         if t.shape != shape or t.dim() < 1 or t.shape[0] != L:
-            raise ValueError(f"{name}: expected six equal [16, ...] "
+            raise ValueError(f"{name}: expected equal [16, ...] "
                              f"coordinates, got {[tuple(x.shape) for x in ts]}")
         if not t[0].is_contiguous():
             raise ValueError(f"{name}: each limb row must be contiguous")
 
 
 def _launch_point(kernel: nat.CudaKernel, ts):
+    """Launch a point kernel on the coordinates `ts` (three for K7, six
+    for K5/K6): input pointers, output pointers, n, input limb strides,
+    output limb stride, the field, the stream."""
     nat.require_cuda(kernel.name, *ts)
     shape = ts[0].shape
     outs = [torch.empty(shape, dtype=torch.int32, device=ts[0].device)
@@ -176,3 +185,12 @@ def jac_add(p1, p2):
     if all(t.device.type == "cpu" for t in ts):
         return jac_add_plain(p1, p2)
     return _launch_point(JAC_ADD, ts)
+
+
+def jac_double(p):
+    """Jacobian doubling (a = 0; infinity is Z = 0) of a coordinate triple."""
+    ts = tuple(p)
+    _check_points("jac_double", ts)
+    if all(t.device.type == "cpu" for t in ts):
+        return jac_double_plain(*ts)
+    return _launch_point(JAC_DOUBLE, ts)

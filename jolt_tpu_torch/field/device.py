@@ -38,9 +38,20 @@ def fmul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return kernels.mont_mul(spec, a, b)
 
 
+def fselect(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+            ) -> torch.Tensor:
+    """Elementwise select over the logical shape (cond has that shape)."""
+    return torch.where(cond[None], a, b)
+
+
 def fsum(spec: FieldSpec, a: torch.Tensor, axis: int) -> torch.Tensor:
     """Modular sum along a logical axis (see arith.sum_limbs)."""
     return arith.sum_limbs(spec, a, axis, fmul)
+
+
+def fsuffix_sum(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Suffix sums mod p along the last axis (arith.suffix_sums)."""
+    return arith.suffix_sums(spec, a, fmul)
 
 
 def _const(spec: FieldSpec, name: str, like: torch.Tensor) -> torch.Tensor:

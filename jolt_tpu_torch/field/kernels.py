@@ -73,7 +73,7 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor
     if _all_cpu(a, b):
         return arith.mont_mul(spec, a, b)
     nat.require_cuda("mont_mul", a, b)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
+    shape = arith.bshape(a.shape, b.shape)
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     n = out[0].numel()
     if n == 0:

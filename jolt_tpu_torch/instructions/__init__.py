@@ -1,3 +1,3 @@
-from .rv32i import XorInstruction
+from .rv32i import AddInstruction, BneInstruction, XorInstruction
 
-__all__ = ["XorInstruction"]
+__all__ = ["AddInstruction", "BneInstruction", "XorInstruction"]

@@ -31,6 +31,14 @@ def chunk_and_concatenate_operands_vec(x, y, C: int, log_M: int) -> np.ndarray:
     return (cx << np.uint64(b)) | cy
 
 
+def add_and_chunk_operands_vec(x, y, C: int, log_M: int) -> np.ndarray:
+    """Chunks of (x + y); for 32-bit words the sum fits u64 exactly
+    (instruction_utils.rs:172+)."""
+    with np.errstate(over="ignore"):
+        z = _u(x) + _u(y)
+    return chunk_operand_vec(z, C, log_M)
+
+
 def concatenate_lookups(vals, C: int, operand_bits: int):
     """sum_i 2^{operand_bits * i} * vals[C-1-i] (instruction_utils.rs:31-42).
 

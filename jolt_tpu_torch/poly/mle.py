@@ -90,10 +90,69 @@ def bitrev_indices(n: int) -> np.ndarray:
     return out
 
 
+def evaluate_many_host(spec: FieldSpec, polys, eq_table: torch.Tensor
+                       ) -> list[FElt]:
+    """Evaluate many same-length MLEs at one point (given its eq table):
+    one stacked inner product and one pull."""
+    stacked = torch.stack(list(polys), dim=1)              # [16, P, n]
+    vals = fd.fsum(spec, fd.fmul(spec, stacked, eq_table[:, None, :]),
+                   axis=-1)                                # [16, P]
+    return [FElt(int(v), spec) for v in fd.device_to_ints(spec, vals).tolist()]
+
+
+def evaluate_device(spec: FieldSpec, z: torch.Tensor, eq_table: torch.Tensor
+                    ) -> torch.Tensor:
+    """<Z, eq(r, .)> -> limb vector [16] (dense_mlpoly.rs:238-253)."""
+    eq = eq_table.reshape((fd.L,) + (1,) * (z.dim() - 2) + eq_table.shape[-1:])
+    out = fd.fmul(spec, z, eq)
+    while out.dim() > 1:
+        out = fd.fsum(spec, out, axis=out.dim() - 2)       # logical last axis
+    return out
+
+
+# ---------------------------------------------------------------------------
+# host-side reference MLE (verifier + tests)
+# ---------------------------------------------------------------------------
+
+def eq_evals_host(r: Sequence[FElt]) -> list[FElt]:
+    spec = r[0].spec if r else fr_spec()
+    table = [FElt(1, spec)]
+    for rj in r:
+        nxt = []
+        for x in table:
+            hi = x * rj
+            nxt.append(x - hi)
+            nxt.append(hi)
+        table = nxt
+    return table
+
+
 def eq_evaluate_host(r: Sequence[FElt], x: Sequence[FElt]) -> FElt:
     assert len(r) == len(x)
     spec = r[0].spec if r else fr_spec()
     out = FElt(1, spec)
     for a, b in zip(r, x):
         out = out * (a * b + (FElt(1, spec) - a) * (FElt(1, spec) - b))
+    return out
+
+
+def evaluate_host(z: Sequence[FElt], r: Sequence[FElt]) -> FElt:
+    chis = eq_evals_host(list(r))
+    assert len(chis) == len(z)
+    spec = r[0].spec if r else fr_spec()
+    acc = FElt(0, spec)
+    for zi, ci in zip(z, chis):
+        acc = acc + zi * ci
+    return acc
+
+
+def mle_from_ints(spec: FieldSpec, values, device, shape=None) -> torch.Tensor:
+    return fd.ints_to_device(spec, values, device, shape)
+
+
+def mle_to_felts(spec: FieldSpec, z: torch.Tensor) -> np.ndarray:
+    ints = fd.device_to_ints(spec, z)
+    out = np.empty(ints.shape, dtype=object)
+    for idx, v in np.ndenumerate(ints):
+        out[idx] = FElt(int(v), spec)
     return out

@@ -17,7 +17,9 @@ The port runs jolt_tpu's CPU path (`_prove_dense_layers`,
 grand_product.py:739, unmasked and shrinking) with every layer and every
 round on the device, down to pair size 2; the TPU-only mechanisms (masked
 fixed-shape rounds, class-buffered trees, host tails, device Fiat-Shamir)
-stay behind.
+stay behind.  The toggled grand product (Lasso's flag-gated read/write
+multisets, grand_product.rs:1049-1546) adds its toggle layer below the
+dense layers, also on the device to the last round.
 """
 from __future__ import annotations
 
@@ -173,6 +175,161 @@ def _prove_dense_layers(spec: FieldSpec, layers: list[tuple],
         layer_proofs.append(BatchedGrandProductLayerProof(
             SumcheckInstanceProof(compressed), left_claims, right_claims))
     return layer_proofs, r_grand_product, claims
+
+
+# ---------------------------------------------------------------------------
+# toggled grand product (grand_product.rs:1049-1546)
+# ---------------------------------------------------------------------------
+
+def _bitrev_last(t: torch.Tensor) -> torch.Tensor:
+    """Bit-reverse-permute the last (hypercube) axis."""
+    idx = torch.from_numpy(bitrev_indices(t.shape[-1])).to(t.device)
+    return t.index_select(-1, idx)
+
+
+def _expand_flag_bits(spec: FieldSpec, bits: torch.Tensor) -> torch.Tensor:
+    """[m, T] bool -> Montgomery 0/1 limb tensor [16, m, T]."""
+    one = fd.ones(spec, (1,) * bits.dim(), bits.device)
+    return torch.where(bits[None], one, 0).to(torch.int32)
+
+
+def _toggle_values_bits(spec: FieldSpec, bits: torch.Tensor,
+                        fingerprints: torch.Tensor) -> torch.Tensor:
+    """Toggle-gate outputs flag * fp + 1 - flag from 0/1 flags [m, T]
+    (memory b // 2 gates fingerprint b of [16, 2m, T]): where(bit, fp, 1)."""
+    b2 = bits.repeat_interleave(2, dim=0)
+    one = fd.ones(spec, (1,) * b2.dim(), fingerprints.device)
+    return torch.where(b2[None], fingerprints, one)
+
+
+def _toggle_cubic_evals(spec: FieldSpec, flags: torch.Tensor,
+                        fingerprints: torch.Tensor, eq: torch.Tensor,
+                        coeffs: torch.Tensor) -> torch.Tensor:
+    """Toggle-layer round evaluations at t = 0, 2, 3 -> [16, 3]
+    (grand_product.rs:1216-1360):
+
+        sum_i eq_t(i) * sum_b coeff_b * (f_t(b, i) * fp_t(b, i) + 1 - f_t(b, i))
+
+    flags [16, m, s], fingerprints [16, 2m, s] and eq [16, s] are
+    bit-reversed along the hypercube, so sibling pairs are the contiguous
+    halves; fingerprint b takes flag row b // 2."""
+    f2 = flags.repeat_interleave(2, dim=1)
+    h = f2.shape[-1] // 2
+    one = fd.ones(spec, (1, 1), f2.device)
+    f0, f1 = f2[..., :h], f2[..., h:]
+    p0, p1 = fingerprints[..., :h], fingerprints[..., h:]
+    e0, e1 = eq[..., :h], eq[..., h:]
+    m_f = fd.fsub(spec, f1, f0)
+    m_p = fd.fsub(spec, p1, p0)
+    m_e = fd.fsub(spec, e1, e0)
+    out = []
+    ft, pt, et = f0, p0, e0
+    for t in (0, 2, 3):
+        if t == 2:
+            ft, pt, et = (fd.fadd(spec, f1, m_f), fd.fadd(spec, p1, m_p),
+                          fd.fadd(spec, e1, m_e))
+        elif t == 3:
+            ft, pt, et = (fd.fadd(spec, ft, m_f), fd.fadd(spec, pt, m_p),
+                          fd.fadd(spec, et, m_e))
+        gate = fd.fadd(spec, fd.fmul(spec, ft, pt), fd.fsub(spec, one, ft))
+        per_i = fd.fsum(spec, fd.fmul(spec, coeffs[:, :, None], gate), axis=0)
+        out.append(fd.fsum(spec, fd.fmul(spec, et, per_i), axis=-1))
+    return torch.stack(out, dim=1)
+
+
+def _toggle_bind(spec: FieldSpec, flags, fingerprints, eq, r: torch.Tensor):
+    """Bind the bottom variable of flags/fingerprints/eq: contiguous halves
+    (bit-reversed), new = lo + r * (hi - lo)."""
+    def bb(t):
+        h = t.shape[-1] // 2
+        lo, hi = t[..., :h], t[..., h:]
+        rb = r.reshape((fd.L,) + (1,) * (t.dim() - 1))
+        return fd.fadd(spec, lo, fd.fmul(spec, rb, fd.fsub(spec, hi, lo)))
+
+    return bb(flags), bb(fingerprints), bb(eq)
+
+
+class ToggledBatchedGrandProduct:
+    """Flag-gated grand product: the bottom layer computes flag * fp + 1 -
+    flag.  The reference keeps sparse flag-index lists; here the flags are
+    a dense 0/1 [m, T] bool tensor, expanded to Montgomery 0/1 limbs for
+    the toggle rounds once the dense layers are proved (same transcript)."""
+
+    def __init__(self, flag_bits: torch.Tensor, fingerprints: torch.Tensor,
+                 spec: FieldSpec | None = None):
+        self.spec = spec or fr_spec()
+        bits = flag_bits.to(device=fingerprints.device, dtype=torch.bool)
+        values = _toggle_values_bits(self.spec, bits, fingerprints)
+        self._flag_bits = _bitrev_last(bits)
+        self.fingerprints = _bitrev_last(fingerprints)        # [16, 2m, T]
+        self.real_batch = values.shape[1]
+        self.layers = _build_pair_tree(self.spec, values)
+
+    def claims(self) -> list[FElt]:
+        l, r = self.layers[-1]
+        return _felts(self.spec, fd.fmul(self.spec, l[..., 0].T, r[..., 0].T))
+
+    def prove(self, transcript: Transcript
+              ) -> tuple[BatchedGrandProductProof, list[FElt]]:
+        spec = self.spec
+        layer_proofs, r_grand_product, claims = _prove_dense_layers(
+            spec, self.layers, self.claims(), [], transcript)
+
+        # toggle layer (grand_product.rs:1422-1474): log T rounds, no r_layer
+        coeffs = transcript.challenge_vector(len(claims))
+        previous_claim = FElt(0, spec)
+        for c, co in zip(claims, coeffs):
+            previous_claim = previous_claim + c * co
+        dev = self.fingerprints.device
+        coeffs_dev = fd.ints_to_device(spec, [c.v for c in coeffs], dev)
+        eq = eq_evals_device_br(spec, r_grand_product, dev)
+        flags = _expand_flag_bits(spec, self._flag_bits)
+        fps = self.fingerprints
+        r_sumcheck: list[FElt] = []
+        compressed: list[CompressedUniPoly] = []
+        for _ in range(len(r_grand_product)):
+            e0, e2, e3 = _felts(spec, _toggle_cubic_evals(spec, flags, fps,
+                                                          eq, coeffs_dev))
+            round_poly = UniPoly.from_evals([e0, previous_claim - e0, e2, e3])
+            cpoly = round_poly.compress()
+            cpoly.append_to_transcript(transcript)
+            r_j = transcript.challenge_scalar()
+            r_sumcheck.append(r_j)
+            flags, fps, eq = _toggle_bind(
+                spec, flags, fps, eq, fd.scalar_to_device(spec, r_j.v, dev))
+            previous_claim = round_poly.evaluate(r_j)
+            compressed.append(cpoly)
+
+        finals = _felts(spec, torch.cat([flags[..., 0], fps[..., 0]], dim=1))
+        m = flags.shape[1]
+        flag_vals, fp_vals = finals[:m], finals[m:]
+        left_claims = [flag_vals[b // 2] for b in range(len(fp_vals))]
+        for lc, rc in zip(left_claims, fp_vals):
+            transcript.append_scalar(lc)
+            transcript.append_scalar(rc)
+        layer_proofs.append(BatchedGrandProductLayerProof(
+            SumcheckInstanceProof(compressed), left_claims, fp_vals))
+        return BatchedGrandProductProof(layer_proofs), list(reversed(r_sumcheck))
+
+
+def toggled_verify_sumcheck_claim(layer_proof, coeffs, sumcheck_claim, eq_eval,
+                                  claims, r_grand_product, transcript,
+                                  layer_index: int, num_layers: int):
+    """Toggled GP claim check (grand_product.rs:1486-1546): the last layer
+    is the toggle layer, with no r_layer; the others are dense."""
+    if layer_index != num_layers - 1:
+        return default_verify_sumcheck_claim(
+            layer_proof, coeffs, sumcheck_claim, eq_eval, claims,
+            r_grand_product, transcript, layer_index, num_layers)
+    one = FElt(1, sumcheck_claim.spec)
+    gates = [fl * fp + one - fl for fl, fp in zip(layer_proof.left_claims,
+                                                 layer_proof.right_claims)]
+    expected = FElt(0, sumcheck_claim.spec)
+    for co, g in zip(coeffs, gates):
+        expected = expected + co * eq_eval * g
+    if expected != sumcheck_claim:
+        raise VerificationError("toggle layer claim mismatch")
+    return gates, r_grand_product
 
 
 # ---------------------------------------------------------------------------

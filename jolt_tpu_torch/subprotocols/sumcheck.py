@@ -18,7 +18,7 @@ import torch
 from ..field import device as fd
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
-from ..poly.mle import bind_top
+from ..poly.mle import bind_bot, bind_top
 from ..poly.unipoly import CompressedUniPoly, UniPoly
 from ..transcript import Transcript
 
@@ -55,11 +55,19 @@ class SumcheckInstanceProof:
 
 
 def _round_evals(spec: FieldSpec, comb_func, degree: int,
-                 polys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Evaluations of sum_x comb(polys(t, x)) at t = 0..degree -> [16, degree+1]."""
-    half = polys[0].shape[-1] // 2
-    lows = tuple(p[..., :half] for p in polys)
-    highs = tuple(p[..., half:] for p in polys)
+                 polys: Sequence[torch.Tensor], bot: bool = False
+                 ) -> torch.Tensor:
+    """Evaluations of sum_x comb(polys(t, x)) at t = 0..degree -> [16, degree+1].
+
+    The round's variable is the top one (pairs (i, i + n/2)), or with `bot`
+    the bottom one (pairs (2i, 2i+1), sumcheck.rs:185-317)."""
+    if bot:
+        lows = tuple(p[..., 0::2] for p in polys)
+        highs = tuple(p[..., 1::2] for p in polys)
+    else:
+        half = polys[0].shape[-1] // 2
+        lows = tuple(p[..., :half] for p in polys)
+        highs = tuple(p[..., half:] for p in polys)
 
     def total(params):
         return fd.fsum(spec, comb_func(spec, params), axis=-1)
@@ -105,3 +113,46 @@ def prove_arbitrary(num_rounds: int,
         compressed.append(cpoly)
     final_evals = _felts(spec, torch.stack([p[..., 0] for p in polys], dim=1))
     return SumcheckInstanceProof(compressed), r, final_evals
+
+
+def prove_arbitrary_bot(num_rounds: int, polys: Sequence[torch.Tensor],
+                        comb_func: Callable, degree: int,
+                        transcript: Transcript, spec: FieldSpec | None = None,
+                        claim: FElt | None = None,
+                        ) -> tuple[SumcheckInstanceProof, list[FElt], list[FElt]]:
+    """Bottom-binding sumcheck (Spartan's outer sumcheck; the caller
+    REVERSES the final point, spartan.rs:146).
+
+    With a `claim`, each round's evaluation at t = 1 is derived as
+    claim - e0 (the reference's hint trick); values are identical for
+    honest provers."""
+    spec = spec or fr_spec()
+    polys = tuple(polys)
+    r: list[FElt] = []
+    compressed: list[CompressedUniPoly] = []
+    previous_claim = claim
+    for _ in range(num_rounds):
+        evals = _felts(spec, _round_evals(spec, comb_func, degree, polys,
+                                          bot=True))
+        if previous_claim is not None:
+            evals[1] = previous_claim - evals[0]
+        round_poly = UniPoly.from_evals(evals)
+        cpoly = round_poly.compress()
+        cpoly.append_to_transcript(transcript)
+        r_j = transcript.challenge_scalar()
+        r.append(r_j)
+        rv = fd.scalar_to_device(spec, r_j.v, polys[0].device)
+        polys = tuple(bind_bot(spec, p, rv) for p in polys)
+        if previous_claim is not None:
+            previous_claim = round_poly.evaluate(r_j)
+        compressed.append(cpoly)
+    final_evals = _felts(spec, torch.stack([p[..., 0] for p in polys], dim=1))
+    return SumcheckInstanceProof(compressed), r, final_evals
+
+
+def comb_product(spec: FieldSpec, params) -> torch.Tensor:
+    """The product of every polynomial of the round."""
+    out = params[0]
+    for p in params[1:]:
+        out = fd.fmul(spec, out, p)
+    return out

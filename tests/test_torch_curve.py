@@ -85,6 +85,20 @@ def test_jac_add_matches_jolt_tpu():
         assert a.add(b).to_affine() == c.to_affine()
 
 
+def test_jac_double_matches_jolt_tpu():
+    """K7's plain version against jolt_tpu's jac_double (XLA, below the
+    Pallas batch), with points at infinity (Z = 0) among the lanes."""
+    p1, _ = _jac_operands()
+    p1[2][:, ::7] = 0
+    want = jcd.jac_double(*map(jnp.asarray, p1))
+    got = tck.jac_double(tuple(map(limbs_from_numpy, p1)))
+    _same(want, got)
+    hin = _host_jac(*p1)
+    hout = _host_jac(*(limbs_to_numpy(t) for t in got))
+    for a, c in zip(hin, hout):
+        assert a.double().to_affine() == c.to_affine()
+
+
 def test_proj_cadd_matches_jolt_tpu():
     """Complete projective add, identity (0:1:0), doubling and inverse."""
     p1, p2 = _jac_operands()

@@ -18,6 +18,7 @@ import torch
 
 from jolt_tpu_torch import cli
 from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
+from jolt_tpu_torch.commitment.mock import MockCommitmentScheme
 from jolt_tpu_torch.curve import kernels as ck
 from jolt_tpu_torch.field import kernels as fk
 from jolt_tpu_torch.field.spec import fr_spec
@@ -74,6 +75,10 @@ _ENTRY_POINTS = {
     "cli.surge_setup": lambda: cli.surge_setup(4),
     "cli.main": lambda: cli.main(["surge-bench", "--nv", "4",
                                   "--prover-runs", "1", "--verifier-runs", "1"]),
+    "JoltVM.preprocess": lambda: cli.fib_vm().preprocess(
+        [], MockCommitmentScheme()),
+    "cli.prove_fib": lambda: cli.prove_fib(1),
+    "cli.main prove-fib": lambda: cli.main(["prove-fib", "--n", "1"]),
 }
 
 
@@ -105,6 +110,7 @@ _WRAPPERS = {
         torch.zeros(16, dtype=torch.int32)),
     "proj_cadd": lambda: ck.proj_cadd((_meta(16, 4),) * 3, (_meta(16, 4),) * 3),
     "jac_add": lambda: ck.jac_add((_meta(16, 4),) * 3, (_meta(16, 4),) * 3),
+    "jac_double": lambda: ck.jac_double((_meta(16, 4),) * 3),
 }
 
 

@@ -138,6 +138,15 @@ def test_proj_cadd_identity_and_doubling(dev):
            ck.proj_cadd_plain(a, b))
 
 
+@pytest.mark.parametrize("n", [1, 37, 1000])
+def test_jac_double_with_infinity(dev, n):
+    p = [t.clone() for t in _points(dev, n)]
+    p[2][:, ::3] = 0                                     # Z = 0: infinity
+    pt = tuple(p)
+    _equal(_launched(ck.JAC_DOUBLE, lambda: ck.jac_double(pt)),
+           ck.jac_double_plain(*pt))
+
+
 def test_build_reports_each_library(dev):
     assert set(nat.build()) <= set(nat.SOURCES)
     assert all(nat.lib_path(s).exists() for s in nat.SOURCES)
