@@ -5,12 +5,17 @@
 
 Phases (any failure exits non-zero, no phase catches and carries on):
   1. the card's name and power limit (nvidia-smi); build every kernel
-     (one nvcc per source, started together) and print each kernel's
-     registers and spills as ptxas reports them;
+     (one nvcc per source, started together) and read each kernel
+     function's registers, spills and shared memory from the ptxas
+     report, with the warps per SM they leave room for;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the nv = 20 Surge prove gives it (K7: the SRS fixture tiled),
      compared for equality, and timed with CUDA events (kernel_ms,
      plain_ms, and the bound from bytes and from 32-bit multiplies);
+     then K2 at the fib GP's batch (B = 43, 64; s = 2^15, 2^9, 2^5) and
+     K2 and K5 on edge residues (0, 1, p - 1, R mod p, ... so that the
+     lazy sums cross p and 2p), with K5's lanes holding P + P, P + (-P)
+     and the identity;
   3. the main path begins (launch counts set to 0): HyperKZG setup of the
      2^20-point SRS, generated on the card; its first 2^17 points must equal
      fixtures/srs/srs_131072_6a6f6c74.npz bit for bit;
@@ -42,6 +47,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -59,6 +65,7 @@ MULS_PER_PRODUCT = 264             # 32-bit multiplies one 256-bit Montgomery
 #   halves m_i = t_0 * inv
 NV = 20
 FIB_N, FIB_T, FIB_M = 13000, 1 << 16, 1 << 16
+REGS_PER_SM, SMEM_PER_SM, MAX_WARPS_PER_SM = 65536, 228 * 1024, 64
 OFF_PATH = {"jac_double": "no prove path of either package launches "
             "jac_double_pallas (K7); phase 2 holds it against its plain "
             "version"}
@@ -92,6 +99,57 @@ def work(name: str, args) -> tuple[int, int]:
     return tb(*pts) + 3 * 4 * 16 * n, per * n
 
 
+def ptxas_usage(reports: dict[str, str]) -> dict[str, dict]:
+    """{CUDA function: registers, spill bytes, static shared bytes} from
+    the -Xptxas -v reports of the libraries built in this run."""
+    usage, fn = {}, None
+    for text in reports.values():
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+                usage[fn] = {"registers": None, "spill_bytes": None,
+                             "smem_bytes": 0}
+            elif fn and (m := re.search(r"(\d+) bytes spill stores, "
+                                        r"(\d+) bytes spill loads", line)):
+                usage[fn]["spill_bytes"] = int(m[1]) + int(m[2])
+            elif fn and (m := re.search(r"Used (\d+) registers", line)):
+                usage[fn]["registers"] = int(m[1])
+                sm = re.search(r"(\d+) bytes smem", line)
+                usage[fn]["smem_bytes"] = int(sm[1]) if sm else 0
+    return usage
+
+
+def resident_warps(regs: int, smem: int, threads: int) -> int:
+    """Warps per SM that the registers and shared memory of a block of
+    `threads` leave room for (registers allocated per warp in units of
+    256; 1 KB of shared memory reserved per block)."""
+    wpb = threads // 32
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(REGS_PER_SM // per_warp // wpb,
+                 SMEM_PER_SM // (smem + 1024), MAX_WARPS_PER_SM // wpb, 32)
+    return blocks * wpb
+
+
+def event_ms(fn, reps: int) -> float:
+    """Device ms per call of `fn`, by CUDA events around `reps` calls.
+    One call is left running when the start event is recorded, so the
+    card does not sit idle while the host enqueues the first timed call
+    (a bias of the host's enqueue time / reps otherwise)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -112,9 +170,10 @@ def max_sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
-def imad_counts(lib_path) -> dict[str, int]:
-    """IMAD-family SASS instructions (32-bit integer multiply-adds, moves
-    excluded) per kernel function of a built library, by cuobjdump."""
+def sass_counts(lib_path) -> dict[str, dict[str, int]]:
+    """Static SASS instructions per kernel function of a built library
+    (cuobjdump): the integer multiply-adds (IMAD family, moves excluded),
+    the integer adds (IADD3 family), selects, and all instructions."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     out = subprocess.run([str(tool if tool.exists() else "cuobjdump"),
                           "-sass", str(lib_path)],
@@ -123,9 +182,20 @@ def imad_counts(lib_path) -> dict[str, int]:
     for line in out.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn and " IMAD" in line and "IMAD.MOV" not in line:
-            counts[fn] += 1
+            counts[fn] = dict(imad=0, iadd3=0, sel=0, total=0)
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if fn and m:
+            op = m[1]
+            c = counts[fn]
+            c["total"] += 1
+            if op.startswith("IMAD") and not op.startswith("IMAD.MOV"):
+                c["imad"] += 1
+            elif op.startswith("IADD3"):
+                c["iadd3"] += 1
+            elif op == "SEL":
+                c["sel"] += 1
     return counts
 
 
@@ -165,20 +235,28 @@ def main() -> None:
 
     # -- phase 1: build --------------------------------------------------
     t0 = time.perf_counter()
+    for name in nat.SOURCES:            # build from the sources, always
+        nat.lib_path(name).unlink(missing_ok=True)
     reports = nat.build(ptxas_verbose=True)
     print(f"phase 1: built {len(nat.SOURCES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, text in reports.items():          # registers and spills
-        for line in text.splitlines():
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
-                print(f"phase 1: {name}.cu: {line.strip()}", flush=True)
-    imads = {}
+    reported, usage = ptxas_usage(reports), {}
+    for k in nat.KERNELS:
+        fns = [f for f in reported if k.mangled in f]
+        if not fns:
+            fail(f"ptxas reported no function for {k.name} ({k.function})")
+        u = dict(reported[fns[0]], threads=k.threads)
+        u["resident_warps_per_sm"] = resident_warps(
+            u["registers"], u["smem_bytes"], k.threads)
+        usage[k.name] = u
+        print(f"phase 1: {k.name}: {fns[0]}: {json.dumps(u)}", flush=True)
     for name in nat.SOURCES:
-        for fn, cnt in imad_counts(nat.lib_path(name)).items():
-            imads[fn] = cnt
-            print(f"phase 1: {name}.cu: {fn}: {cnt} IMAD-family SASS "
-                  f"instructions (IMAD.MOV excluded)", flush=True)
+        for fn, c in sass_counts(nat.lib_path(name)).items():
+            for k in nat.KERNELS:
+                if k.mangled in fn:
+                    usage[k.name]["sass"] = c
+            print(f"phase 1: {name}.cu: {fn}: SASS {json.dumps(c)}",
+                  flush=True)
     clock_hz = max_sm_clock_hz()
     imad_rate = SMS * IMAD_PER_CLK_SM * clock_hz
     print(f"phase 1: max SM clock {clock_hz / 1e6:.0f} MHz; INT32 multiply "
@@ -197,17 +275,21 @@ def main() -> None:
                               device=dev, dtype=torch.int32)
         return t
 
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+    def edge_fe(spec, *shape):
+        """Reduced elements [16, *shape], three in four drawn from edges
+        (0, 1, 2, p - 1, p - 2, (p -+ 1)/2, R mod p, p - R mod p, 2^255 mod
+        p), so that the kernels' lazy sums and differences cross p and
+        2p."""
+        p = spec.p
+        pool = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2, spec.r,
+                p - spec.r, (1 << 255) % p]
+        pool_t = torch.from_numpy(fd.pack_ints(pool).astype(np.int32)).to(dev)
+        t = rand_fe(spec, *shape).reshape(16, -1)
+        pick = torch.randint(0, len(pool), (t.shape[1],), generator=gen,
+                             device=dev)
+        use = torch.rand(t.shape[1], generator=gen, device=dev) < 0.75
+        t[:, use] = pool_t[:, pick[use]]
+        return t.reshape((16,) + shape)
 
     def as_tuple(x):
         return x if isinstance(x, tuple) else (x,)
@@ -223,6 +305,7 @@ def main() -> None:
         "jac_add": (ck.jac_add, ck.jac_add_plain),
         "jac_double": (ck.jac_double, lambda p: ck.jac_double_plain(*p))}
     results = {}                    # {kernel: {"phase 2"|"phase 6 fib": row}}
+    more = {}                       # {kernel: [rows at further shapes]}
 
     def compare(phase, name, shape, args, record=True):
         wrapper, plain = KERNEL[name]
@@ -248,11 +331,13 @@ def main() -> None:
               f"bytes_bound_ms={bytes_ms:.4f} int32_muls={muls} "
               f"ops_bound_ms={ops_ms:.4f} bound_by={bound_by} "
               f"max_abs_err={err}", flush=True)
+        row = dict(shape=shape, max_abs_err=err, ms=kernel_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
         if record:
-            results.setdefault(name, {})[phase] = dict(
-                shape=shape, max_abs_err=err, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
+            results.setdefault(name, {})[phase] = row
+        else:                           # more shapes, kept beside the row
+            more.setdefault(name, []).append(row)
 
     n = 1 << NV
     # K1, Fr: the witness's to-Montgomery pass, [16, 4, 2^20] x R^2
@@ -280,6 +365,17 @@ def main() -> None:
     compare("phase 2", "gp_pair_bind",
             "l,r [8,16,2^19], eq [16,2^19] -> halves", (FR, l, r, eq, rc))
     del pair, l, r, eq
+    # K2 at the fib GP's batch: its largest round and two small ones (the
+    # small rounds show the per-launch floor), then on edge residues
+    for Bk, sk in [(b, k) for b in (43, 64) for k in (15, 9, 5)] + [(43, 12)]:
+        mk = edge_fe if sk == 12 else rand_fe
+        lk = mk(FR, Bk, 1 << sk).movedim(0, 1).contiguous()
+        rk = mk(FR, Bk, 1 << sk).movedim(0, 1).contiguous()
+        compare("phase 2", "gp_pair_evals",
+                f"l,r [{Bk},16,2^{sk}], eq [16,2^{sk}], coeffs [16,{Bk}]"
+                + (" edge residues" if sk == 12 else ""),
+                (FR, lk, rk, mk(FR, 1 << sk), mk(FR, Bk)), record=False)
+        del lk, rk
     # K5, K6 on real points: the 2^17-point SRS fixture, tiled
     with np.load(ROOT / "fixtures" / "srs" / "srs_131072_6a6f6c74.npz") as z:
         fix = {k: z[k] for k in ("X", "Y", "Z")}
@@ -299,8 +395,15 @@ def main() -> None:
         proj[0][:, 0], proj[1][:, 0], proj[2][:, 0]            # doubling
     other[0][:, 1], other[2][:, 1] = 0, 0                      # (0:1:0)
     other[1][:, 1] = arith.const_limbs(FQ, "r", dev)[:, None]
+    other[0][:, 2], other[2][:, 2] = proj[0][:, 2], proj[2][:, 2]
+    other[1][:, 2] = arith.sub(FQ, torch.zeros_like(proj[1][:, 2]),
+                               proj[1][:, 2])                  # P + (-P)
     p1, p2 = tuple(proj), tuple(other)
     compare("phase 2", "proj_cadd", f"[16,{T},{K}] x 6 -> 3 Fq", (p1, p2))
+    p1 = tuple(edge_fe(FQ, T, K) for _ in range(3))
+    p2 = tuple(edge_fe(FQ, T, K) for _ in range(3))
+    compare("phase 2", "proj_cadd", f"[16,{T},{K}] x 6 -> 3 Fq edge residues",
+            (p1, p2), record=False)
     del proj, other, p1, p2, PX, PZ
     # K6: the first tree level of SRS generation, [16, 16, 2^18]
     W2, C = 16, 1 << 18
@@ -557,8 +660,9 @@ def main() -> None:
         row = {
             "name": k.name, "route": "cuda", "source": k.source_path,
             "replaces": k.replaces, "launches": main_counts[k.name],
-            "max_abs_err": max(v["max_abs_err"]
-                               for v in results[k.name].values()),
+            "max_abs_err": max(v["max_abs_err"] for v in
+                               [*results[k.name].values(),
+                                *more.get(k.name, [])]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "bytes_bound_ms": r["bytes_bound_ms"],
@@ -566,6 +670,9 @@ def main() -> None:
             "launches_per_prove": prove_counts[k.name],
             "launches_fib_main_path": fib_counts[k.name],
             "launches_per_fib_prove": fib_prove_counts[k.name]}
+        row.update(usage[k.name])
+        if k.name in more:
+            row["more_shapes"] = more[k.name]
         if "phase 6 fib" in results[k.name]:
             row["at_fib_shape"] = results[k.name]["phase 6 fib"]
         if k.name in OFF_PATH:

@@ -7,7 +7,8 @@ its sources and flags, so an edited source is rebuilt and a stale library
 is never loaded.  `build()` starts one `nvcc` per source, all at once.
 
 Every kernel is a `CudaKernel`: its C symbol, the TPU kernel it replaces,
-and `launches`, the count of its launches.  A wrapper calls `launch` once
+the CUDA function it launches with its threads per block (as the source's
+launch bounds fix them), and `launches`, the count of its launches.  A wrapper calls `launch` once
 per launch of its kernel and nowhere else, so a run can show which kernels
 it went through (`launch_counts`).
 """
@@ -17,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -96,12 +98,14 @@ class CudaKernel:
     """A hand-written kernel's C entry point and its launch count."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: list,
-                 replaces: str):
+                 replaces: str, function: str, threads: int):
         self.name = name
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
         self.replaces = replaces
+        self.function = function      # as demangled: "point_kernel<0>"
+        self.threads = threads
         self.launches = 0
         self._fn = None
         KERNELS.append(self)
@@ -109,6 +113,12 @@ class CudaKernel:
     @property
     def source_path(self) -> str:
         return f"jolt_tpu_torch/csrc/{self.source}.cu"
+
+    @property
+    def mangled(self) -> str:
+        """The part of the function's mangled name that ptxas and
+        cuobjdump print: point_kernel<0> -> point_kernelILi0E."""
+        return re.sub(r"<(\d+)>", r"ILi\1E", self.function)
 
     def launch(self, *args) -> None:
         if self._fn is None:

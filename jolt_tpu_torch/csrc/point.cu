@@ -8,9 +8,10 @@
 // K6 replaces ::jac_add_pallas: the Jacobian addition with masked doubling,
 // inverse and infinity (Z = 0) cases of `_jac_add_core` (pallas_point.py:
 // 65-100), the tree step of SRS generation (commitment/kzg.py:73-92).
-// Outputs are coordinates, not unique residues, so both follow the
-// reference formulas step for step; every field op yields the reduced
-// value, so the limbs match jolt_tpu bit for bit.
+// Outputs are coordinates, not unique residues, but each is a fixed
+// polynomial of the inputs mod p: any straight-line evaluation of the same
+// formula that ends in the reduced value gives jolt_tpu's limbs bit for
+// bit.  K6 and K7 follow the reference step for step on reduced values.
 // K7 replaces ::jac_double_pallas: `dbl_core`, the dbl-2009-l doubling
 // (a = 0, 7 Fq Montgomery products; Z = 0 stays at infinity), launched on
 // its own.  Neither package's prove path launches it: jolt_tpu reaches
@@ -19,14 +20,18 @@
 // doubling inside its own kernel.  chip_smoke.py holds K7 against its
 // plain version.
 //
-// Bound on the H100: bytes.  K5/K6 read six coordinates and write three,
-// 9 x 64 B per point-op: 2^20 adds move 0.60 GB, 0.18 ms at 3.35 TB/s;
-// K7 reads three and writes three, 6 x 64 B per point.  K5 does 12 Fq
-// Montgomery products per add, K6 about 22 (the doubling is computed and
-// selected, as on the TPU) and K7 7, so all carry far more integer work
-// per byte than the field kernels.  The design keeps one point-op per
-// thread with every intermediate in registers and nothing in shared
-// memory.
+// Bound on the H100: the integer multiply pipe.  K5/K6 read six
+// coordinates and write three, 9 x 64 B per point-op: 2^20 adds move
+// 0.60 GB, 0.18 ms at 3.35 TB/s; K7 reads three and writes three.  K5 does
+// 12 Fq Montgomery products per add (12 x 264 32-bit multiplies), K6 about
+// 22 (the doubling is computed and selected, as on the TPU) and K7 7, so
+// K5 and K6 are bound by the IMAD rate, not by memory.  The design keeps
+// one point-op per thread with every intermediate in registers and nothing
+// in shared memory.  K5 runs on the lazy ops of field.cuh: every
+// intermediate lies in [0, 2p), sums of two reduced inputs skip their
+// reduction, and only the three stored coordinates are reduced to [0, p):
+// 24 conditional steps where the step-for-step form takes 39.  Its launch
+// bounds keep 12 warps resident on an SM without spills.
 #include "field.cuh"
 
 namespace {
@@ -39,7 +44,7 @@ struct Pt {
 };
 
 __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b, const Field& F) {
-  return jt::mont_mul(a, b, F);
+  return jt::fmul(a, b, F);
 }
 __device__ __forceinline__ Fe add(const Fe& a, const Fe& b, const Field& F) {
   return jt::fadd(a, b, F);
@@ -110,28 +115,41 @@ __device__ __forceinline__ Pt jac_add_core(const Pt& P1, const Pt& P2,
   return out;
 }
 
-// pallas_point.py `_cadd_core`: RCB16 Algorithm 7, a = 0, b3 = 9
+// 9t for t < 2p, in [0, 2p): three doublings and an add
+__device__ __forceinline__ Fe times9(const Fe& t, const Field& F) {
+  Fe t8 = jt::ladd(t, t, F);
+  t8 = jt::ladd(t8, t8, F);
+  t8 = jt::ladd(t8, t8, F);
+  return jt::ladd(t8, t, F);
+}
+
+// pallas_point.py `_cadd_core`: RCB16 Algorithm 7, a = 0, b3 = 9.  Inputs
+// reduced; every intermediate in [0, 2p) (lazy ops); outputs reduced.
 __device__ __forceinline__ Pt cadd_core(const Pt& P1, const Pt& P2,
                                         const Field& F) {
-  auto b3 = [&](const Fe& t) { return add(dbl(dbl(dbl(t, F), F), F), t, F); };
-  Fe t0 = mul(P1.X, P2.X, F);
-  Fe t1 = mul(P1.Y, P2.Y, F);
-  Fe t2 = mul(P1.Z, P2.Z, F);
-  Fe t3 = mul(add(P1.X, P1.Y, F), add(P2.X, P2.Y, F), F);
-  t3 = sub(t3, add(t0, t1, F), F);
-  Fe t4 = mul(add(P1.Y, P1.Z, F), add(P2.Y, P2.Z, F), F);
-  t4 = sub(t4, add(t1, t2, F), F);
-  Fe X3 = mul(add(P1.X, P1.Z, F), add(P2.X, P2.Z, F), F);
-  Fe Y3 = sub(X3, add(t0, t2, F), F);
-  t0 = add(dbl(t0, F), t0, F);
-  t2 = b3(t2);
-  Fe Z3 = add(t1, t2, F);
-  t1 = sub(t1, t2, F);
-  Y3 = b3(Y3);
+  using jt::add_raw;
+  using jt::ladd;
+  using jt::lmul;
+  using jt::lsub;
+  Fe t0 = lmul(P1.X, P2.X, F);
+  Fe t1 = lmul(P1.Y, P2.Y, F);
+  Fe t2 = lmul(P1.Z, P2.Z, F);
+  // a sum of two reduced inputs is below 2p: no reduction needed
+  Fe t3 = lmul(add_raw(P1.X, P1.Y), add_raw(P2.X, P2.Y), F);
+  t3 = lsub(t3, ladd(t0, t1, F), F);
+  Fe t4 = lmul(add_raw(P1.Y, P1.Z), add_raw(P2.Y, P2.Z), F);
+  t4 = lsub(t4, ladd(t1, t2, F), F);
+  Fe X3 = lmul(add_raw(P1.X, P1.Z), add_raw(P2.X, P2.Z), F);
+  Fe Y3 = lsub(X3, ladd(t0, t2, F), F);
+  t0 = ladd(ladd(t0, t0, F), t0, F);
+  t2 = times9(t2, F);
+  Fe Z3 = ladd(t1, t2, F);
+  t1 = lsub(t1, t2, F);
+  Y3 = times9(Y3, F);
   Pt out;
-  out.X = sub(mul(t3, t1, F), mul(t4, Y3, F), F);
-  out.Y = add(mul(Y3, t0, F), mul(t1, Z3, F), F);
-  out.Z = add(mul(Z3, t4, F), mul(t0, t3, F), F);
+  out.X = jt::reduce(lsub(lmul(t3, t1, F), lmul(t4, Y3, F), F), F);
+  out.Y = jt::reduce(ladd(lmul(Y3, t0, F), lmul(t1, Z3, F), F), F);
+  out.Z = jt::reduce(ladd(lmul(Z3, t4, F), lmul(t0, t3, F), F), F);
   return out;
 }
 
@@ -142,8 +160,12 @@ struct PointArgs {
   long long o_ls;
 };
 
+// K5: three blocks of 128 threads per SM, which caps it at 168 registers
+// (it takes 150, no spills; at four blocks ptxas spills)
+constexpr int K5_MIN_BLOCKS = 3;
+
 template <int OP>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, OP == 0 ? K5_MIN_BLOCKS : 1)
 point_kernel(PointArgs A, long long n, Field F) {
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -190,9 +212,7 @@ int launch_point(const int32_t* x1, const int32_t* y1, const int32_t* z1,
   A.out[1] = oy;
   A.out[2] = oz;
   A.o_ls = o_ls;
-  Field F;
-  for (int k = 0; k < 8; k++) F.p[k] = field[k];
-  F.inv = field[8];
+  const Field F = jt::make_field(field);
   const int threads = 128;
   point_kernel<OP><<<jt_blocks(n, threads), threads, 0,
                      (cudaStream_t)stream>>>(A, n, F);

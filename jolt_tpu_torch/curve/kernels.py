@@ -28,14 +28,17 @@ _POINT_ARGS = [nat.vptr] * 9 + [nat.i64] * 8 + [nat.u32p, nat.vptr]
 
 PROJ_CADD = nat.CudaKernel(
     "proj_cadd", "point", "jt_proj_cadd", _POINT_ARGS,
-    "jolt_tpu/curve/pallas_point.py:158 proj_cadd_pallas")
+    "jolt_tpu/curve/pallas_point.py:158 proj_cadd_pallas",
+    "point_kernel<0>", 128)
 JAC_ADD = nat.CudaKernel(
     "jac_add", "point", "jt_jac_add", _POINT_ARGS,
-    "jolt_tpu/curve/pallas_point.py:252 jac_add_pallas")
+    "jolt_tpu/curve/pallas_point.py:252 jac_add_pallas",
+    "point_kernel<1>", 128)
 JAC_DOUBLE = nat.CudaKernel(
     "jac_double", "point", "jt_jac_double",
     [nat.vptr] * 6 + [nat.i64] * 5 + [nat.u32p, nat.vptr],
-    "jolt_tpu/curve/pallas_point.py:261 jac_double_pallas")
+    "jolt_tpu/curve/pallas_point.py:261 jac_double_pallas",
+    "point_kernel<2>", 128)
 
 
 def _mul(x, y):

@@ -27,22 +27,31 @@ _MONT_ARGS = [nat.vptr] * 3 + [nat.i64] * 10 + [nat.u32p, nat.vptr]
 
 MONT_MUL = nat.CudaKernel(
     "mont_mul", "mont", "jt_mont_mul", _MONT_ARGS,
-    "jolt_tpu/field/pallas_mont.py:248 mont_mul_pallas")
+    "jolt_tpu/field/pallas_mont.py:248 mont_mul_pallas", "mont_mul_kernel",
+    256)
 MONT_MUL_BL = nat.CudaKernel(
     "mont_mul_bl", "mont", "jt_mont_mul", _MONT_ARGS,
-    "jolt_tpu/field/pallas_mont.py:496 mont_mul_bl_pallas")
+    "jolt_tpu/field/pallas_mont.py:496 mont_mul_bl_pallas", "mont_mul_kernel",
+    256)
 GP_PAIR_EVALS = nat.CudaKernel(
     "gp_pair_evals", "gp_pair", "jt_gp_pair_evals",
-    [nat.vptr] * 6 + [nat.i64] * 10 + [nat.u32p, nat.vptr],
-    "jolt_tpu/field/pallas_mont.py:754 gp_pair_evals_pallas")
+    [nat.vptr] * 7 + [nat.i64] * 11 + [nat.u32p, nat.vptr],
+    "jolt_tpu/field/pallas_mont.py:754 gp_pair_evals_pallas",
+    "gp_pair_evals_kernel", 256)
 GP_PAIR_BIND = nat.CudaKernel(
     "gp_pair_bind", "gp_pair", "jt_gp_pair_bind",
     [nat.vptr] * 6 + [nat.i64] * 7 + [nat.u32p, nat.u32p, nat.vptr],
-    "jolt_tpu/field/pallas_mont.py:769 gp_pair_bind_pallas")
+    "jolt_tpu/field/pallas_mont.py:769 gp_pair_bind_pallas",
+    "gp_pair_bind_kernel", 256)
 
-GP_THREADS = 256      # threads per block of gp_pair.cu (GP_THREADS there)
-GP_MAX_BLOCKS = 1024  # partial sums of K2's first launch
+GP_WARPS = 8          # warps per K2 block (GP_THREADS / 32 in gp_pair.cu)
+GP_MIN_BLOCKS = 2     # K2 blocks per SM (its launch bound in gp_pair.cu)
+GP_TILE = 32          # pair indices per warp
+GP_MAX_BLOCKS = 1024  # K2 blocks, each writing one partial sum
 GP_MAX_B = 64         # circuits per batch (GP_MAX_B there)
+H100_SMS = 132
+GP_WAVE_WARPS = H100_SMS * GP_MIN_BLOCKS * GP_WARPS  # K2 warps resident at
+#   once on the H100
 
 
 def _all_cpu(*ts) -> bool:
@@ -175,6 +184,45 @@ def gp_pair_evals_plain(spec: FieldSpec, l, r, eq, coeffs) -> torch.Tensor:
     return torch.stack([e0, e2, e3], dim=1)              # [16, 3]
 
 
+def gp_evals_plan(B: int, h: int) -> tuple[int, int]:
+    """K2's launch geometry for B circuits and h pair indices: (groups,
+    blocks).  A warp covers 32 consecutive pair indices and one group of
+    circuits (b = g, g + groups, ...).  groups is 1, 2, 4 or 8 (a block's
+    8 warps hold 8 / groups tiles) or a multiple of 8 (groups / 8 blocks
+    share a tile); it is the largest whose warps fit in one wave
+    (GP_WAVE_WARPS), or 1: a large round runs as one even wave with the
+    fewest group partials, a small round spreads its circuits until each
+    thread holds one.  blocks is capped at GP_MAX_BLOCKS and the tiles are
+    looped over beyond it.  The blocks that share a tile pay for
+    themselves: K2's device time per fib T = 2^16 prove is 8.1 ms with
+    them and 11.5 ms with groups capped at 8, on an H100
+    (scripts/profile_torch_prove.py --replay-k2 on each variant)."""
+    if not 1 <= B <= GP_MAX_B or h < 1:
+        raise ValueError(f"gp_evals_plan: B = {B}, h = {h}")
+    tiles = -(-h // GP_TILE)
+    top = 1 << (B - 1).bit_length() if B <= GP_WARPS else -(-B // 8) * 8
+    cands = [g for g in (1, 2, 4, 8, *range(16, GP_MAX_B + 1, 8)) if g <= top]
+    groups = max(g for g in cands if g == 1 or tiles * g <= GP_WAVE_WARPS)
+    per_block = min(groups, GP_WARPS)
+    shared = groups // per_block                 # blocks that share a tile
+    tile_blocks = -(-tiles // (GP_WARPS // per_block))
+    return groups, min(tile_blocks, GP_MAX_BLOCKS // shared) * shared
+
+
+_GP_COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _gp_counter(device: torch.device) -> torch.Tensor:
+    """K2's last-block ticket for the current stream of `device`: 0
+    between launches (the last block resets it).  One counter per stream,
+    so no two launches that may overlap share one: a stream runs its
+    launches in order."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _GP_COUNTERS:
+        _GP_COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _GP_COUNTERS[key]
+
+
 def gp_pair_evals(spec: FieldSpec, l: torch.Tensor, r: torch.Tensor,
                   eq: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     """sum_i eq_t(i) * sum_b coeff_b * l_t(b, i) * r_t(b, i) at t = 0, 2, 3
@@ -188,16 +236,15 @@ def gp_pair_evals(spec: FieldSpec, l: torch.Tensor, r: torch.Tensor,
     if _all_cpu(l, r, eq, coeffs):
         return gp_pair_evals_plain(spec, l, r, eq, coeffs)
     nat.require_cuda("gp_pair_evals", l, r, eq, coeffs)
-    s = l.shape[-1]
-    h = s // 2
-    nblocks = min(-(-h // GP_THREADS), GP_MAX_BLOCKS)
+    h = l.shape[-1] // 2
+    groups, nblocks = gp_evals_plan(B, h)
     partials = torch.empty((nblocks, 3, 8), dtype=torch.int32, device=l.device)
     out = torch.empty((L, 3), dtype=torch.int32, device=l.device)
     GP_PAIR_EVALS.launch(
         nat.ptr(l), nat.ptr(r), nat.ptr(eq), nat.ptr(coeffs),
-        nat.ptr(partials), nat.ptr(out), B, h,
-        l.stride(0), l.stride(1), r.stride(0), r.stride(1), eq.stride(0),
-        coeffs.stride(0), coeffs.stride(1), nblocks,
+        nat.ptr(partials), nat.ptr(_gp_counter(l.device)), nat.ptr(out), B, h,
+        groups, l.stride(0), l.stride(1), r.stride(0), r.stride(1),
+        eq.stride(0), coeffs.stride(0), coeffs.stride(1), nblocks,
         nat.words(spec.words32()), nat.stream(out))
     return out
 

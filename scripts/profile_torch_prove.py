@@ -12,11 +12,22 @@ then:
 
   1. one prove under torch.profiler (CPU and CUDA activities): wall time,
      the time the card spent in kernels (the union of their intervals),
-     its idle share, and device time by kernel name;
+     its idle share, device time by kernel name, and the summed device
+     time and launches of each of the port's kernels (K1-K7);
   2. one prove under cProfile: host time by function (cumulative), which
      names the protocol phases (witness, commit, sumchecks, memory
      checking, openings) and the host work inside them (transcript, limb
      carries).
+
+With --unprofiled-only it stops after the unprofiled prove: the prove
+seconds alone, for comparing checkouts in turns in one call (copy this
+script into the other checkout's scripts/).
+
+With --replay-k2, the profile is K2's alone, in seconds rather than the
+full profile's minutes: the inputs of every K2 call of one prove are kept
+on the card, and the calls are replayed twice under torch.profiler; it
+prints K2's summed device time per prove and how it splits over the
+launch plans (`gp_evals_plan`) the calls took.
 
 Prints the card's name and power limit first.  Imports nothing of JAX.
 """
@@ -32,8 +43,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
 def _union_us(intervals) -> float:
     total, end = 0.0, float("-inf")
     for s, e in sorted(intervals):
@@ -46,11 +55,67 @@ def _union_us(intervals) -> float:
     return total
 
 
+def port_kernels(nat) -> dict[str, tuple[str, str]]:
+    """{label: (demangled, mangled) function name} of each CUDA function
+    of the port (K1 and K4 share one), as the profiler may name it."""
+    fns: dict[str, list] = {}
+    for k in nat.KERNELS:
+        fns.setdefault(k.function, [k.mangled, []])[1].append(k.name)
+    return {f"{'+'.join(names)} {fn}": (fn, mangled)
+            for fn, (mangled, names) in fns.items()}
+
+
+def replay_k2(prove, card: str, tag: str) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from jolt_tpu_torch.field import kernels as fk
+    calls, wrapper = [], fk.gp_pair_evals
+
+    def keep(*a):
+        calls.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                           for x in a))
+        return wrapper(*a)
+
+    fk.gp_pair_evals = keep             # where the prover looks it up
+    try:
+        prove()
+    finally:
+        fk.gp_pair_evals = wrapper
+    plans = [fk.gp_evals_plan(a[1].shape[0], a[1].shape[2] // 2)
+             for a in calls]
+    for rep in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for a in calls:
+                wrapper(*a)
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and fk.GP_PAIR_EVALS.function in e.name),
+                     key=lambda e: e.time_range.start)
+        if len(evs) != len(calls):
+            sys.exit(f"replay: {len(evs)} K2 kernels for {len(calls)} calls")
+        by_plan: dict[int, list] = {}
+        for e, (groups, _) in zip(evs, plans):
+            rec = by_plan.setdefault(groups, [0.0, 0])
+            rec[0] += (e.time_range.end - e.time_range.start) / 1e3
+            rec[1] += 1
+        total = sum(ms for ms, _ in by_plan.values())
+        print(f"K2 replay {rep} of one prove {tag}: {total:.3f} ms device "
+              f"time in {len(evs)} launches [{card}]", flush=True)
+        for groups, (ms, n) in sorted(by_plan.items()):
+            print(f"  groups={groups}: {ms:.3f} ms in {n} launches",
+                  flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("surge", "fib"), default="surge")
     ap.add_argument("--nv", type=int, default=20, help="Surge: log2 lookups")
     ap.add_argument("--fib-n", type=int, default=13000)
+    ap.add_argument("--unprofiled-only", action="store_true",
+                    help="stop after the unprofiled prove (above)")
+    ap.add_argument("--replay-k2", action="store_true",
+                    help="profile K2's calls of one prove alone (above)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -90,7 +155,12 @@ def main() -> None:
         return time.perf_counter() - t0
 
     print(f"warm-up prove {tag}: {prove():.3f} s", flush=True)
-    print(f"unprofiled prove {tag}: {prove():.3f} s", flush=True)
+    if args.replay_k2:
+        replay_k2(prove, card, tag)
+        return
+    print(f"unprofiled prove {tag}: {prove():.3f} s [{card}]", flush=True)
+    if args.unprofiled_only:
+        return
 
     # 1. the card's view
     from torch.profiler import ProfilerActivity, profile
@@ -112,6 +182,11 @@ def main() -> None:
     print("device time by kernel (ms, launches):")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"  {ms:10.2f} {n:7d}  {name[:110]}")
+    print(f"the port's kernels, device time per prove {tag} [{card}]:")
+    for label, pats in port_kernels(nat).items():
+        hits = [v for k, v in by_name.items() if any(p in k for p in pats)]
+        print(f"  {label}: {sum(ms for ms, _ in hits):.2f} ms in "
+              f"{sum(n for _, n in hits)} launches")
 
     # 2. the host's view
     pr = cProfile.Profile()
