@@ -12,7 +12,9 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      shapes the nv = 20 Surge prove gives it (K7: the SRS fixture tiled),
      compared for equality, and timed with CUDA events (kernel_ms,
      plain_ms, and the bound from bytes and from 32-bit multiplies);
-     then K2 at the fib GP's batch (B = 43, 64; s = 2^15, 2^9, 2^5) and
+     then K2 at the fib GP's batch (B = 43, 64; s = 2^15, 2^9, 2^5), at
+     the full VM's (B = 65, 81, 110, 128, and 200, which the wrapper
+     splits over two launches; s = 2^15, 2^5) with K3 at B = 110, and
      K2 and K5 on edge residues (0, 1, p - 1, R mod p, ... so that the
      lazy sums cross p and 2p), with K5's lanes holding P + P, P + (-P)
      and the identity;
@@ -37,7 +39,20 @@ Phases (any failure exits non-zero, no phase catches and carries on):
   7. reference on a small input: fibonacci(3) on the mini VM at M = 2^8
      with HyperKZG over 2^8 points, on the card and on the CPU: both
      transcripts must equal jolt_tpu's, frozen in fixtures/port/
-     (scripts/freeze_port_fixtures.py), read here with numpy.
+     (scripts/freeze_port_fixtures.py), read here with numpy;
+  8. the full RV32I VM's main path (launch counts set to 0 before it):
+     sha2-chain(13) on rv32i_vm() (29 instructions, 26 subtables, C = 4,
+     M = 2^16) with the input 0x05 x 32, traced to 62,413 steps, padded to
+     T = 2^16, HyperKZG from the SRS fixture, as phase 6: warm-up prove
+     (K1-K5 must have launched; the largest call of each kernel, and of K2
+     and K3 at each batch size, replayed against the plain version),
+     accept, tamper rejected, timed prove and verify; the guest's 32
+     output bytes must equal hashlib's sha256 iterated 13 times;
+  9. reference at full width: rv32i_vm() (M = 2^16) with the mock PCS on
+     the card proves each frozen case of jolt_tpu_torch/vm/fixtures.py
+     (fibonacci(8), the M-extension program, a program of every load and
+     store width, sha2_chain_program(1)): its transcript and its
+     commitments' digests must equal jolt_tpu's (fixtures/port/<case>.npz).
 Then a {"kernels": [...]} JSON line, the card line again, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX or jolt_tpu.
 K7 (jac_double) lies on neither main path (see csrc/point.cu): phase 2
@@ -64,7 +79,9 @@ MULS_PER_PRODUCT = 264             # 32-bit multiplies one 256-bit Montgomery
 #   products a_i*b_j and 64 m_i*p_j, each a low and a high half, and 8 low
 #   halves m_i = t_0 * inv
 NV = 20
-FIB_N, FIB_T, FIB_M = 13000, 1 << 16, 1 << 16
+FIB_N, FIB_STEPS, FIB_T, FIB_M = 13000, 65005, 1 << 16, 1 << 16
+SHA2_ITERS, SHA2_STEPS, SHA2_T = 13, 62413, 1 << 16
+GP_KERNELS = ("gp_pair_evals", "gp_pair_bind")
 REGS_PER_SM, SMEM_PER_SM, MAX_WARPS_PER_SM = 65536, 228 * 1024, 64
 OFF_PATH = {"jac_double": "no prove path of either package launches "
             "jac_double_pallas (K7); phase 2 holds it against its plain "
@@ -225,8 +242,13 @@ def main() -> None:
     from jolt_tpu_torch.lasso import (SurgePreprocessing, generate_witness,
                                       surge_prove, surge_verify)
     from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
+    from jolt_tpu_torch.commitment.mock import MockCommitmentScheme
     from jolt_tpu_torch.subprotocols.sumcheck import VerificationError
+    from jolt_tpu_torch.vm.guests import (sha2_chain_expected,
+                                          sha2_chain_program)
+    from jolt_tpu_torch.vm import fixtures as fx
     from jolt_tpu_torch.vm.host import fibonacci_program, trace_program
+    from jolt_tpu_torch.vm.rv32i_vm import rv32i_vm
 
     dev = torch.device("cuda")
     FR, FQ = fr_spec(), fq_spec()
@@ -304,7 +326,7 @@ def main() -> None:
         "proj_cadd": (ck.proj_cadd, ck.proj_cadd_plain),
         "jac_add": (ck.jac_add, ck.jac_add_plain),
         "jac_double": (ck.jac_double, lambda p: ck.jac_double_plain(*p))}
-    results = {}                    # {kernel: {"phase 2"|"phase 6 fib": row}}
+    results = {}                    # {kernel: {phase: row}}
     more = {}                       # {kernel: [rows at further shapes]}
 
     def compare(phase, name, shape, args, record=True):
@@ -331,7 +353,7 @@ def main() -> None:
               f"bytes_bound_ms={bytes_ms:.4f} int32_muls={muls} "
               f"ops_bound_ms={ops_ms:.4f} bound_by={bound_by} "
               f"max_abs_err={err}", flush=True)
-        row = dict(shape=shape, max_abs_err=err, ms=kernel_ms,
+        row = dict(phase=phase, shape=shape, max_abs_err=err, ms=kernel_ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
         if record:
@@ -376,6 +398,20 @@ def main() -> None:
                 + (" edge residues" if sk == 12 else ""),
                 (FR, lk, rk, mk(FR, 1 << sk), mk(FR, Bk)), record=False)
         del lk, rk
+    # K2 at the full VM's batches (its GPs' 110 and 81 circuits; 128, the
+    # kernel's cap; 200, split over two launches) and K3 at B = 110
+    for Bk, sk in [(b, k) for b in (65, 81, 110, 128, 200) for k in (15, 5)]:
+        lk = rand_fe(FR, Bk, 1 << sk).movedim(0, 1).contiguous()
+        rk = rand_fe(FR, Bk, 1 << sk).movedim(0, 1).contiguous()
+        eqk = rand_fe(FR, 1 << sk)
+        compare("phase 2", "gp_pair_evals",
+                f"l,r [{Bk},16,2^{sk}], eq [16,2^{sk}], coeffs [16,{Bk}]",
+                (FR, lk, rk, eqk, rand_fe(FR, Bk)), record=False)
+        if Bk == 110:
+            compare("phase 2", "gp_pair_bind",
+                    f"l,r [{Bk},16,2^{sk}], eq [16,2^{sk}] -> halves",
+                    (FR, lk, rk, eqk, rc), record=False)
+        del lk, rk, eqk
     # K5, K6 on real points: the 2^17-point SRS fixture, tiled
     with np.load(ROOT / "fixtures" / "srs" / "srs_131072_6a6f6c74.npz") as z:
         fix = {k: z[k] for k in ("X", "Y", "Z")}
@@ -513,27 +549,15 @@ def main() -> None:
     print("phase 5: Surge nv=10 card == CPU (transcript, 16 commitments); "
           "2 commitments == host MSM", flush=True)
 
-    # -- phase 6: the Jolt VM, fibonacci at T = 2^16 ---------------------
-    vm = cli.fib_vm(FIB_M)
-    t0 = time.perf_counter()
-    steps, io, rows = trace_program(fibonacci_program(FIB_N), vm,
-                                    max_input_size=32, max_output_size=32)
-    trace_s = time.perf_counter() - t0
-    T = 1 << (len(steps) - 1).bit_length()
-    if T != FIB_T:
-        fail(f"fib({FIB_N}) traced to {len(steps)} steps, padded to {T}, "
-             f"not 2^16")
-    print(f"phase 6: fib({FIB_N}) traced to {len(steps)} steps "
-          f"({len(rows)} bytecode rows) in {trace_s:.2f} s, padded to "
-          f"T = 2^16", flush=True)
+    # -- phases 6 and 8: the Jolt VM's main paths -------------------------
     # Through setup and the warm-up prove, each kernel's wrapper is wrapped
     # where the prover's modules look it up (field/kernels.py for K1-K4,
     # curve/device.py for K5-K7), keeping a copy of the inputs of its
-    # largest call on the card; the copies are replayed below.
+    # largest call on the card (with `by_batch`, K2's and K3's largest at
+    # each batch size); the copies are replayed against the plain versions.
     sites = {name: (fk if name in ("mont_mul", "mont_mul_bl",
                                    "gp_pair_evals", "gp_pair_bind") else cd)
              for name in KERNEL}
-    largest = {}
 
     def tensors(x):
         if isinstance(x, torch.Tensor):
@@ -549,84 +573,119 @@ def main() -> None:
             return type(x)(copy(y) for y in x)
         return x
 
-    def keep_largest(name, fn):
-        def wrapped(*args):
-            ts = list(tensors(args))
-            size = max(t.numel() for t in ts)
-            if ts[0].is_cuda and size > largest.get(name, (0, None))[0]:
-                largest[name] = (size, copy(args))
-            return fn(*args)
-        return wrapped
+    def vm_path(phase, label, vm, program, want_steps, want_T,
+                by_batch=False, **trace_args):
+        """Trace, set up, warm-up prove (recorded and replayed), accept,
+        tamper, timed prove and verify; returns the launch counts of the
+        main path (setup + warm-up prove) and of the timed prove, and the
+        program's I/O."""
+        t0 = time.perf_counter()
+        steps, io, rows = trace_program(program, vm, **trace_args)
+        trace_s = time.perf_counter() - t0
+        T = 1 << (len(steps) - 1).bit_length()
+        if (len(steps), T) != (want_steps, want_T):
+            fail(f"{label} traced to {len(steps)} steps, padded to {T}, not "
+                 f"{want_steps} and {want_T}")
+        print(f"{phase}: {label} traced to {len(steps)} steps ({len(rows)} "
+              f"bytecode rows) in {trace_s:.2f} s, padded to T = 2^"
+              f"{T.bit_length() - 1}", flush=True)
+        largest = {}
 
-    for name, mod in sites.items():
-        setattr(mod, name, keep_largest(name, KERNEL[name][0]))
-    nat.reset_launch_counts()
-    t0 = time.perf_counter()
-    srs_len = vm.required_srs_len(io, steps, rows)
-    pcs_f = HyperKZG.setup(srs_len, device=dev)
-    pre_f = vm.preprocess(rows, pcs_f)
-    torch.cuda.synchronize()
-    setup_f = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    proof, com, tr, acc = vm.prove(io, steps, pre_f)
-    torch.cuda.synchronize()
-    warm_f = time.perf_counter() - t0
-    fib_counts = nat.launch_counts()
-    for name, mod in sites.items():
-        setattr(mod, name, KERNEL[name][0])
-    print(f"phase 6: HyperKZG setup ({srs_len} points) + preprocessing "
-          f"{setup_f:.3f} s; warm-up prove {warm_f:.3f} s; main-path "
-          f"launches (setup + this prove) {json.dumps(fib_counts)}",
-          flush=True)
-    missing = [k for k in ("mont_mul", "mont_mul_bl", "gp_pair_evals",
-                           "gp_pair_bind", "proj_cadd") if fib_counts[k] <= 0]
-    if missing:
-        fail(f"kernels of the Jolt VM path never launched: {missing}")
-    unseen = [k for k, v in fib_counts.items() if v and k not in largest]
-    if unseen:
-        fail(f"launches that bypassed the recording wrappers: {unseen}")
-    for name in KERNEL:                 # the fib path's shapes, as phase 2
-        if name in largest:
-            args = largest.pop(name)[1]
+        def keep_largest(name, fn):
+            def wrapped(*args):
+                ts = list(tensors(args))
+                size = max(t.numel() for t in ts)
+                key = (name, args[1].shape[0] if by_batch and
+                       name in GP_KERNELS else 0)
+                if ts[0].is_cuda and size > largest.get(key, (0, None))[0]:
+                    largest[key] = (size, copy(args))
+                return fn(*args)
+            return wrapped
+
+        for name, mod in sites.items():
+            setattr(mod, name, keep_largest(name, KERNEL[name][0]))
+        nat.reset_launch_counts()
+        t0 = time.perf_counter()
+        srs_len = vm.required_srs_len(io, steps, rows)
+        pcs_v = HyperKZG.setup(srs_len, device=dev)
+        pre_v = vm.preprocess(rows, pcs_v)
+        torch.cuda.synchronize()
+        setup_v = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proof, com, tr, acc = vm.prove(io, steps, pre_v)
+        torch.cuda.synchronize()
+        warm_v = time.perf_counter() - t0
+        counts = nat.launch_counts()
+        for name, mod in sites.items():
+            setattr(mod, name, KERNEL[name][0])
+        print(f"{phase}: HyperKZG setup ({srs_len} points) + preprocessing "
+              f"{setup_v:.3f} s; warm-up prove {warm_v:.3f} s; main-path "
+              f"launches (setup + this prove) {json.dumps(counts)}",
+              flush=True)
+        missing = [k for k in ("mont_mul", "mont_mul_bl", "gp_pair_evals",
+                               "gp_pair_bind", "proj_cadd") if counts[k] <= 0]
+        if missing:
+            fail(f"kernels of the {label} path never launched: {missing}")
+        unseen = [k for k, v in counts.items()
+                  if v and k not in {n for n, _ in largest}]
+        if unseen:
+            fail(f"launches that bypassed the recording wrappers: {unseen}")
+        top = {name: max((key for key in largest if key[0] == name),
+                         key=lambda key: largest[key][0])
+               for name in {n for n, _ in largest}}
+        for key in sorted(largest, key=lambda k: (list(KERNEL).index(k[0]),
+                                                  -k[1])):
+            name, args = key[0], largest.pop(key)[1]
             shape = " x ".join(str(list(t.shape)) for t in tensors(args))
             if isinstance(args[0], FieldSpec):
                 shape += f" {args[0].name}"
-            compare("phase 6 fib", name, shape, args)
+            compare(f"{phase} {label}", name, shape, args,
+                    record=key == top[name])
             del args
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    vm.verify(pre_f, proof, com, debug_transcript=tr, debug_accumulator=acc)
-    print(f"phase 6: verifier accepts ({time.perf_counter() - t0:.3f} s, "
-          f"with the debug oracles)", flush=True)
-    ops = proof.instruction_lookups.primary_sumcheck.openings
-    good = ops.lookup_outputs_opening
-    ops.lookup_outputs_opening = good + FElt(1, FR)
-    try:
-        vm.verify(pre_f, proof, com)
-    except VerificationError as e:
-        print(f"phase 6: a proof with its lookup-outputs opening bumped by "
-              f"one is rejected ({e})", flush=True)
-    else:
-        fail("a proof with an opening bumped by one verified")
-    ops.lookup_outputs_opening = good
-    nat.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    proof, com, tr, acc = vm.prove(io, steps, pre_f)
-    torch.cuda.synchronize()
-    prove_f = time.perf_counter() - t0
-    fib_prove_counts = nat.launch_counts()
-    t0 = time.perf_counter()
-    vm.verify(pre_f, proof, com)
-    verify_f = time.perf_counter() - t0
-    print(f"phase 6: Jolt VM fib({FIB_N}) T=2^16 C=4 M=2^16 HyperKZG: "
-          f"prove_s={prove_f:.3f} verify_s={verify_f:.3f} "
-          f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f} "
-          f"[{card}]", flush=True)
-    print(f"phase 6: launches per T=2^16 prove "
-          f"{json.dumps(fib_prove_counts)}", flush=True)
-    del proof, com, tr, acc, pre_f, pcs_f
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        vm.verify(pre_v, proof, com, debug_transcript=tr,
+                  debug_accumulator=acc)
+        print(f"{phase}: verifier accepts ({time.perf_counter() - t0:.3f} "
+              f"s, with the debug oracles)", flush=True)
+        ops = proof.instruction_lookups.primary_sumcheck.openings
+        good = ops.lookup_outputs_opening
+        ops.lookup_outputs_opening = good + FElt(1, FR)
+        try:
+            vm.verify(pre_v, proof, com)
+        except VerificationError as e:
+            print(f"{phase}: a proof with its lookup-outputs opening bumped "
+                  f"by one is rejected ({e})", flush=True)
+        else:
+            fail(f"{label}: a proof with an opening bumped by one verified")
+        ops.lookup_outputs_opening = good
+        del proof, com, tr, acc
+        nat.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        proof, com, tr, acc = vm.prove(io, steps, pre_v)
+        torch.cuda.synchronize()
+        prove_v = time.perf_counter() - t0
+        prove_counts = nat.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        vm.verify(pre_v, proof, com)
+        verify_v = time.perf_counter() - t0
+        print(f"{phase}: Jolt VM {label} T=2^{T.bit_length() - 1} C=4 "
+              f"M=2^{vm.M.bit_length() - 1} HyperKZG: prove_s={prove_v:.3f} "
+              f"verify_s={verify_v:.3f} peak_mem_GB={peak:.2f} [{card}]",
+              flush=True)
+        print(f"{phase}: launches per {label} prove "
+              f"{json.dumps(prove_counts)}", flush=True)
+        del proof, com, tr, acc, pre_v, pcs_v
+        torch.cuda.empty_cache()
+        return counts, prove_counts, io
+
+    # -- phase 6: the mini VM, fibonacci at T = 2^16 ----------------------
+    fib_counts, fib_prove_counts, _ = vm_path(
+        "phase 6", f"fib({FIB_N})", cli.fib_vm(FIB_M),
+        fibonacci_program(FIB_N), FIB_STEPS, FIB_T, max_input_size=32,
+        max_output_size=32)
 
     # -- phase 7: fib(3) on the card, on the CPU, and jolt_tpu's ----------
     with np.load(ROOT / "fixtures" / "port" / "fib3_hyperkzg.npz") as z:
@@ -653,6 +712,41 @@ def main() -> None:
     print("phase 7: fib(3) card == CPU == jolt_tpu transcript "
           f"({len(frozen)} states)", flush=True)
 
+    # -- phase 8: the full RV32I VM, sha2-chain(13) at T = 2^16 ----------
+    sha2_counts, sha2_prove_counts, io8 = vm_path(
+        "phase 8", f"sha2-chain({SHA2_ITERS})", rv32i_vm(),
+        sha2_chain_program(SHA2_ITERS), SHA2_STEPS, SHA2_T, by_batch=True,
+        inputs=cli.SHA2_INPUT)
+    out8 = bytes(io8.outputs)[:32]
+    if out8 != sha2_chain_expected(cli.SHA2_INPUT, SHA2_ITERS):
+        fail(f"sha2-chain({SHA2_ITERS}): the guest's output {out8.hex()} is "
+             "not hashlib's")
+    print(f"phase 8: sha2-chain({SHA2_ITERS}) output {out8.hex()} == "
+          f"hashlib.sha256 iterated {SHA2_ITERS} times", flush=True)
+
+    # -- phase 9: rv32i_vm() at M = 2^16 against jolt_tpu's frozen proofs
+    vm9 = rv32i_vm()
+    for case in fx.RV32I_CASES:
+        with np.load(ROOT / "fixtures" / "port" / f"{case}.npz") as z:
+            want9 = {k: z[k] for k in z.files}
+        t0 = time.perf_counter()
+        program9, inputs9 = fx.case_program(case)
+        steps9, io9, rows9 = trace_program(program9, vm9, inputs=inputs9)
+        pre9 = vm9.preprocess(rows9, MockCommitmentScheme(), device=dev)
+        _, c9, t9, _ = vm9.prove(io9, steps9, pre9)
+        got9 = fx.proof_arrays(t9, c9, digest=True)
+        bad9 = fx.differing(got9, want9)
+        if bad9:
+            fail(f"{case}: {bad9} differ from jolt_tpu's "
+                 f"(fixtures/port/{case}.npz)")
+        print(f"phase 9: {case} ({len(steps9)} steps) M=2^16 on the card: "
+              f"{len(t9.state_history)} transcript states and "
+              f"{len(got9['rw_lens']) + len(got9['if_lens'])} commitments "
+              f"== jolt_tpu's ({time.perf_counter() - t0:.2f} s)",
+              flush=True)
+        del pre9, c9, t9
+    torch.cuda.empty_cache()
+
     # -- summary ----------------------------------------------------------
     kernels = []
     for k in nat.KERNELS:
@@ -669,12 +763,17 @@ def main() -> None:
             "ops_bound_ms": r["ops_bound_ms"], "shape": r["shape"],
             "launches_per_prove": prove_counts[k.name],
             "launches_fib_main_path": fib_counts[k.name],
-            "launches_per_fib_prove": fib_prove_counts[k.name]}
+            "launches_per_fib_prove": fib_prove_counts[k.name],
+            "launches_sha2_main_path": sha2_counts[k.name],
+            "launches_per_sha2_prove": sha2_prove_counts[k.name]}
         row.update(usage[k.name])
         if k.name in more:
             row["more_shapes"] = more[k.name]
-        if "phase 6 fib" in results[k.name]:
-            row["at_fib_shape"] = results[k.name]["phase 6 fib"]
+        for ph, key in ((f"phase 6 fib({FIB_N})", "at_fib_shape"),
+                        (f"phase 8 sha2-chain({SHA2_ITERS})",
+                         "at_sha2_shape")):
+            if ph in results[k.name]:
+                row[key] = results[k.name][ph]
         if k.name in OFF_PATH:
             row["off_main_path"] = OFF_PATH[k.name]
         kernels.append(row)

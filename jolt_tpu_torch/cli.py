@@ -4,6 +4,8 @@
         [--prover-runs 10] [--verifier-runs 50] [--device cuda|cpu]
     python -m jolt_tpu_torch.cli prove-fib [--n 8] [--pcs mock|hyperkzg]
         [--device cuda|cpu]
+    python -m jolt_tpu_torch.cli prove-sha2-chain [--iters 1]
+        [--pcs mock|hyperkzg] [--device cuda|cpu]
 
 `surge-bench` is the fork's headline benchmark (bench.rs:109-210), as
 jolt_tpu's `cli.py surge-bench` runs it: Surge XOR lookups with C = 4,
@@ -30,8 +32,9 @@ from .instructions import AddInstruction, BneInstruction, XorInstruction
 from .lasso import SurgePreprocessing, surge_prove, surge_verify
 from .subtables.rv32i import (EqSubtable, IdentitySubtable,
                               TruncateOverflowSubtable)
+from .vm.guests import SHA2_INPUT, sha2_chain_expected, sha2_chain_program
 from .vm.host import fibonacci_program, trace_program
-from .vm.rv32i_vm import mini_vm
+from .vm.rv32i_vm import mini_vm, rv32i_vm
 
 SURGE_C = 4
 SURGE_M = 1 << 16
@@ -102,14 +105,12 @@ def fib_vm(M: int = 1 << 8):
                     EqSubtable()], M_mini=M)
 
 
-def prove_fib(n: int = 8, pcs_name: str = "mock", M: int = 1 << 8,
-              device=None):
-    """Trace fibonacci(n), prove it and verify the proof; returns the
-    timings (seconds) as a dict."""
-    dev = resolve_device(device)
-    vm = fib_vm(M)
-    steps, io, rows = trace_program(fibonacci_program(n), vm,
-                                    max_input_size=32, max_output_size=32)
+def _prove_verify(vm, program, pcs_name: str, dev: torch.device,
+                  **trace_args) -> tuple[dict, bytes]:
+    """Trace `program`, prove it and verify the proof on `dev`; returns the
+    trace length and the timings (seconds), and the program's output
+    bytes."""
+    steps, io, rows = trace_program(program, vm, **trace_args)
     if pcs_name == "hyperkzg":
         pcs = HyperKZG.setup(vm.required_srs_len(io, steps, rows), device=dev)
     else:
@@ -121,10 +122,32 @@ def prove_fib(n: int = 8, pcs_name: str = "mock", M: int = 1 << 8,
     prove_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     vm.verify(pre, proof, commitments)
-    return {"fib_n": n, "trace_length": len(steps), "pcs": pcs_name,
+    return {"trace_length": len(steps), "pcs": pcs_name,
             "prove_seconds": prove_s,
             "verify_seconds": time.perf_counter() - t0,
-            "device": device_name(dev)}
+            "device": device_name(dev)}, bytes(io.outputs)
+
+
+def prove_fib(n: int = 8, pcs_name: str = "mock", M: int = 1 << 8,
+              device=None):
+    """Trace fibonacci(n), prove it on the mini VM and verify the proof;
+    returns the timings (seconds) as a dict."""
+    res, _ = _prove_verify(fib_vm(M), fibonacci_program(n), pcs_name,
+                           resolve_device(device), max_input_size=32,
+                           max_output_size=32)
+    return {"fib_n": n, **res}
+
+
+def prove_sha2_chain(iters: int = 1, pcs_name: str = "mock", device=None):
+    """Trace sha2-chain(iters) on the input 0x05 x 32, check its output
+    against hashlib, prove it on rv32i_vm() and verify the proof; returns
+    the timings (seconds) as a dict."""
+    res, outputs = _prove_verify(rv32i_vm(), sha2_chain_program(iters),
+                                 pcs_name, resolve_device(device),
+                                 inputs=SHA2_INPUT)
+    if outputs[:32] != sha2_chain_expected(SHA2_INPUT, iters):
+        raise AssertionError("sha2-chain: the guest's output is not hashlib's")
+    return {"sha2_chain_iters": iters, **res}
 
 
 def main(argv=None) -> None:
@@ -142,10 +165,19 @@ def main(argv=None) -> None:
     pf.add_argument("--n", type=int, default=8)
     pf.add_argument("--pcs", choices=("mock", "hyperkzg"), default="mock")
     pf.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ps = sub.add_parser("prove-sha2-chain", help="prove + verify the "
+                        "sha2-chain guest on the full RV32I VM")
+    ps.add_argument("--iters", type=int, default=1)
+    ps.add_argument("--pcs", choices=("mock", "hyperkzg"), default="mock")
+    ps.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.cmd == "prove-fib":
         print(json.dumps(prove_fib(args.n, args.pcs, device=args.device)),
               flush=True)
+        return
+    if args.cmd == "prove-sha2-chain":
+        print(json.dumps(prove_sha2_chain(args.iters, args.pcs,
+                                          device=args.device)), flush=True)
         return
     nv_list = list(range(args.nv, (args.nv_hi or args.nv) + 1))
     for row in surge_bench(nv_list, args.prover_runs, args.verifier_runs,

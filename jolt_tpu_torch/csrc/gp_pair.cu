@@ -25,6 +25,10 @@
 //     more, a block holds one tile x 8 groups and groups/8 blocks share a
 //     tile (each multiplies its own partial by eq: eq_t(i) * sum_b x_b =
 //     sum over blocks of eq_t(i) * partial, 3 more products per block);
+//   - one launch takes up to GP_MAX_B = 128 circuits (the full VM's GPs
+//     run 110 and 81), so groups go up to 128 and up to 16 blocks share a
+//     tile; the wrapper runs a larger batch as one launch per slice and
+//     adds their outputs;
 //   - each thread forms its group's s_0, s_2, s_3 at its i; the warps of a
 //     tile sum them mod p through shared memory, and then warps multiply
 //     by eq_0, eq_2, eq_3 at i (one product each) and accumulate;
@@ -46,7 +50,8 @@ constexpr int GP_THREADS = 256;
 constexpr int GP_WARPS = GP_THREADS / 32;
 constexpr int GP_MIN_BLOCKS = 2;  // per SM; field/kernels.py plans one wave
                                   // as SMs x GP_MIN_BLOCKS blocks
-constexpr int GP_MAX_B = 64;
+constexpr int GP_MAX_B = 128;  // circuits per launch (cs: 4 KB of shared
+                               // memory); the wrapper splits larger batches
 
 // 8 words of lane + offset added mod p into v
 __device__ __forceinline__ void shfl_add(jt::Fe& v, int offset,

@@ -48,7 +48,8 @@ GP_WARPS = 8          # warps per K2 block (GP_THREADS / 32 in gp_pair.cu)
 GP_MIN_BLOCKS = 2     # K2 blocks per SM (its launch bound in gp_pair.cu)
 GP_TILE = 32          # pair indices per warp
 GP_MAX_BLOCKS = 1024  # K2 blocks, each writing one partial sum
-GP_MAX_B = 64         # circuits per batch (GP_MAX_B there)
+GP_MAX_B = 128        # circuits per launch (GP_MAX_B there); larger batches
+#   are split over launches by `gp_batch_chunks`
 H100_SMS = 132
 GP_WAVE_WARPS = H100_SMS * GP_MIN_BLOCKS * GP_WARPS  # K2 warps resident at
 #   once on the H100
@@ -196,7 +197,8 @@ def gp_evals_plan(B: int, h: int) -> tuple[int, int]:
     looped over beyond it.  The blocks that share a tile pay for
     themselves: K2's device time per fib T = 2^16 prove is 8.1 ms with
     them and 11.5 ms with groups capped at 8, on an H100
-    (scripts/profile_torch_prove.py --replay-k2 on each variant)."""
+    (scripts/profile_torch_prove.py --replay-k2 on each variant).  B is
+    one launch's batch, at most GP_MAX_B."""
     if not 1 <= B <= GP_MAX_B or h < 1:
         raise ValueError(f"gp_evals_plan: B = {B}, h = {h}")
     tiles = -(-h // GP_TILE)
@@ -223,20 +225,36 @@ def _gp_counter(device: torch.device) -> torch.Tensor:
     return _GP_COUNTERS[key]
 
 
+def gp_batch_chunks(B: int) -> list[tuple[int, int]]:
+    """K2's launches for a batch of B circuits: [b0, b1) slices of at most
+    GP_MAX_B circuits.  The evals are linear in the circuits, so their sum
+    mod p over the slices is the whole batch's."""
+    return [(b0, min(b0 + GP_MAX_B, B)) for b0 in range(0, B, GP_MAX_B)]
+
+
 def gp_pair_evals(spec: FieldSpec, l: torch.Tensor, r: torch.Tensor,
                   eq: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     """sum_i eq_t(i) * sum_b coeff_b * l_t(b, i) * r_t(b, i) at t = 0, 2, 3
-    -> [16, 3].  l, r: [B, 16, s]; eq: [16, s]; coeffs: [16, B]."""
+    -> [16, 3].  l, r: [B, 16, s]; eq: [16, s]; coeffs: [16, B]; any
+    B >= 1 (one launch per `gp_batch_chunks` slice)."""
     _check_pair("gp_pair_evals", l, r, eq)
     B = l.shape[0]
-    if B > GP_MAX_B:
-        raise ValueError(f"gp_pair_evals: batch {B} above {GP_MAX_B}")
     if tuple(coeffs.shape) != (L, B):
         raise ValueError(f"gp_pair_evals: coeffs {tuple(coeffs.shape)}")
     if _all_cpu(l, r, eq, coeffs):
         return gp_pair_evals_plain(spec, l, r, eq, coeffs)
     nat.require_cuda("gp_pair_evals", l, r, eq, coeffs)
-    h = l.shape[-1] // 2
+    out = None
+    for b0, b1 in gp_batch_chunks(B):
+        part = _gp_pair_evals_launch(spec, l[b0:b1], r[b0:b1], eq,
+                                     coeffs[:, b0:b1])
+        out = part if out is None else arith.add(spec, out, part)
+    return out
+
+
+def _gp_pair_evals_launch(spec: FieldSpec, l, r, eq, coeffs) -> torch.Tensor:
+    """One K2 launch over at most GP_MAX_B circuits."""
+    B, h = l.shape[0], l.shape[-1] // 2
     groups, nblocks = gp_evals_plan(B, h)
     partials = torch.empty((nblocks, 3, 8), dtype=torch.int32, device=l.device)
     out = torch.empty((L, 3), dtype=torch.int32, device=l.device)

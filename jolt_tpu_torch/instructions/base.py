@@ -27,6 +27,10 @@ class SubtableIndices:
     def __init__(self, indices):
         self.indices = sorted(set(indices))
 
+    @staticmethod
+    def single(i: int) -> "SubtableIndices":
+        return SubtableIndices([i])
+
     def __iter__(self):
         return iter(self.indices)
 
@@ -43,6 +47,17 @@ class JoltInstruction:
 
     def combine_lookups(self, vals: Sequence, C: int, M: int):
         raise NotImplementedError
+
+    def slice_values(self, vals: Sequence, C: int, M: int) -> list:
+        """Split flat subtable-major values per subtable (mod.rs
+        slice_values)."""
+        out = []
+        offset = 0
+        for _, indices in self.subtables(C, M):
+            out.append(list(vals[offset:offset + len(indices)]))
+            offset += len(indices)
+        assert offset == len(vals)
+        return out
 
     def g_poly_degree(self, C: int) -> int:
         raise NotImplementedError

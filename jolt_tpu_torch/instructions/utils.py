@@ -39,6 +39,23 @@ def add_and_chunk_operands_vec(x, y, C: int, log_M: int) -> np.ndarray:
     return chunk_operand_vec(z, C, log_M)
 
 
+def multiply_and_chunk_operands_vec(x, y, C: int, log_M: int) -> np.ndarray:
+    """Chunks of (x * y); 32-bit operand products fit u64 exactly."""
+    with np.errstate(over="ignore"):
+        z = _u(x) * _u(y)
+    return chunk_operand_vec(z, C, log_M)
+
+
+def chunk_and_concatenate_for_shift_vec(x, y, C: int, log_M: int) -> np.ndarray:
+    """Shift instructions: x chunked over log_M/2-bit chunks, each
+    concatenated with y's LOWEST log_M/2-bit chunk
+    (instruction_utils.rs chunk_and_concatenate_for_shift)."""
+    b = log_M // 2
+    cx = chunk_operand_vec(x, C, b)
+    y_low = _u(y) & np.uint64((1 << b) - 1)
+    return (cx << np.uint64(b)) | y_low[None, :]
+
+
 def concatenate_lookups(vals, C: int, operand_bits: int):
     """sum_i 2^{operand_bits * i} * vals[C-1-i] (instruction_utils.rs:31-42).
 

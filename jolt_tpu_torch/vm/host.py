@@ -58,6 +58,9 @@ class Assembler:
     def sw(self, rs1, rs2, imm):
         self.emit(RV32IM.SW, rs1=rs1, rs2=rs2, imm=imm & 0xFFFFFFFF)
 
+    def lw(self, rd, rs1, imm):
+        self.emit(RV32IM.LW, rd=rd, rs1=rs1, imm=imm & 0xFFFFFFFF)
+
     def finish(self) -> list[ELFInstruction]:
         for idx, label in self.fixups:
             target = self.labels[label]

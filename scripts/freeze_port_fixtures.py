@@ -1,71 +1,86 @@
 #!/usr/bin/env python3
-"""Freeze jolt_tpu's fib(3) proof transcripts for the port's CPU tests.
+"""Freeze jolt_tpu's proof transcripts for the port's tests.
 
-    JAX_PLATFORMS=cpu python scripts/freeze_port_fixtures.py
+    JAX_PLATFORMS=cpu python scripts/freeze_port_fixtures.py [CASE ...]
 
-Proves fibonacci(3) on the mini VM (ADD, BNE over TruncateOverflow(32),
-Identity, Eq; C = 4, M = 2^8, 32-byte I/O) with jolt_tpu on the CPU in
-three cases and writes one `fixtures/port/fib3_<case>.npz` each:
+With no CASE, freezes them all.  Each case is proved and verified by
+jolt_tpu on the CPU and written to `fixtures/port/<case>.npz`:
 
-    mock      the mock PCS
-    hyperkzg  HyperKZG over a 2^8-point SRS (seed 0x6A6F6C74)
-    parity    the mock PCS with JOLT_REFERENCE_PARITY=1 (the reference's
-              SHA3 vk_digest)
+    fib3_mock      fibonacci(3) on the mini VM (ADD, BNE over
+                   TruncateOverflow(32), Identity, Eq; C = 4, M = 2^8,
+                   32-byte I/O), the mock PCS
+    fib3_hyperkzg  the same, HyperKZG over a 2^8-point SRS (seed 0x6A6F6C74)
+    fib3_parity    the same as fib3_mock with JOLT_REFERENCE_PARITY=1 (the
+                   reference's SHA3 vk_digest)
+    narrow_mock    `narrow_program` on the narrow VM (the 23 RV32I
+                   instructions that chunk at M = 2^8, all 26 subtables;
+                   C = 4, M = 2^8, 32-byte I/O), the mock PCS
+    rv32i_fib8_mock    fibonacci(8) on rv32i_vm() (C = 4, M = 2^16), the
+                       mock PCS: jolt_tpu's tests/test_rv32i_e2e.py
+    rv32i_muldiv_mock  `muldiv_mix_program` on rv32i_vm(), the mock PCS:
+                       the same test file's M-extension program
+    rv32i_loadstore_mock  `loadstore_program` on rv32i_vm(), the mock PCS:
+                       every load and store width, and LUI
+    rv32i_sha2_1_mock  sha2_chain_program(1) on rv32i_vm() (5,161 steps,
+                       T = 2^13), the mock PCS
 
-Each file holds the transcript's `state_history` (uint8 [events + 1, 32])
-and the read/write and init/final commitments in transcript byte order:
-HyperKZG points as x || y big-endian (uint8 [k, 64], zeros at infinity),
-mock commitments as their evaluations (uint8 [sum of lengths, 32]
-big-endian, with int64 lengths [k]).  tests/test_torch_vm.py compares the
-port's proofs with these files; a live run of `prove_case` is the slow
-variant of that test.  The prove takes minutes of XLA compiles per case.
+The cases, their programs and the array format are in
+jolt_tpu_torch/vm/fixtures.py, which the port's tests and chip_smoke.py
+read too; tests/test_torch_vm.py and tests/test_torch_rv32i.py compare the
+port's proofs with these files, and their `slow` tests rerun `prove_case`
+and `prove_rv32i_case` live.  A fib3 prove takes minutes of XLA compiles,
+an rv32i one longer.
 """
 from __future__ import annotations
 
 import os
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "fixtures" / "port"
+sys.path.insert(0, str(ROOT))
+from jolt_tpu_torch.vm import fixtures as fx  # noqa: E402
+
 CASES = ("mock", "hyperkzg", "parity")
-FIB_N = 3
-M_MINI = 1 << 8
-SRS_LEN = 1 << 8
 
 
-def history_array(state_history) -> np.ndarray:
-    return np.frombuffer(b"".join(state_history), dtype=np.uint8).reshape(
-        len(state_history), 32)
+def prove_rv32i_case(case: str) -> dict:
+    """jolt_tpu's proof of `narrow_mock` or one of RV32I_CASES, verified by
+    jolt_tpu, as the arrays above (mock commitments as digests)."""
+    from jolt_tpu.commitment import MockCommitmentScheme
+    from jolt_tpu.field import fr_spec
+    from jolt_tpu.instructions import RV32I_INSTRUCTIONS
+    from jolt_tpu.vm.guests import _Asm, sha2_chain_program
+    from jolt_tpu.vm.host import fibonacci_program, trace_program
+    from jolt_tpu.vm.rv32i_vm import RV32I_SUBTABLES, mini_vm, rv32i_vm
+    from jolt_tpu.vm.rv_trace import RV32IM
 
-
-def commitment_arrays(prefix: str, commitments) -> dict:
-    """HyperKZG points (objects with .point) or mock evaluations (.evals)
-    -> arrays, keyed `<prefix>_points` or `<prefix>_evals`/`_lens`."""
-    if hasattr(commitments[0], "point"):
-        rows = [b"\x00" * 64 if c.point.is_infinity else
-                int(c.point.x).to_bytes(32, "big")
-                + int(c.point.y).to_bytes(32, "big") for c in commitments]
-        return {f"{prefix}_points": np.frombuffer(
-            b"".join(rows), dtype=np.uint8).reshape(len(rows), 64)}
-    lens = np.array([len(c.evals) for c in commitments], dtype=np.int64)
-    flat = b"".join(int(e.v).to_bytes(32, "big")
-                    for c in commitments for e in c.evals)
-    return {f"{prefix}_evals": np.frombuffer(flat, dtype=np.uint8).reshape(
-                -1, 32), f"{prefix}_lens": lens}
-
-
-def proof_arrays(transcript, commitments) -> dict:
-    out = {"state_history": history_array(transcript.state_history)}
-    out.update(commitment_arrays("rw", commitments["read_write"]))
-    out.update(commitment_arrays("if", commitments["init_final"]))
-    return out
+    spec = fr_spec()
+    io_size = {}
+    if case == "narrow_mock":
+        vm = mini_vm(fx.narrow_instructions(RV32I_INSTRUCTIONS),
+                     RV32I_SUBTABLES, M_mini=fx.M_MINI, spec=spec)
+        io_size = dict(max_input_size=32, max_output_size=32)
+    else:
+        vm = rv32i_vm(spec)
+    program, inputs = fx.case_program(case, _Asm, RV32IM, fibonacci_program,
+                                      sha2_chain_program)
+    steps, io, rows = trace_program(program, vm, inputs=inputs, native=False,
+                                    **io_size)
+    pcs = MockCommitmentScheme(spec)
+    pre = vm.preprocess(rows, pcs)
+    proof, commitments, transcript, acc = vm.prove(io, steps, pre)
+    vm.verify(pre, proof, commitments, debug_transcript=transcript,
+              debug_accumulator=acc)
+    return fx.proof_arrays(transcript, commitments, digest=True)
 
 
 def prove_case(case: str) -> dict:
-    """jolt_tpu's fib(3) proof of one case, as the arrays above."""
+    """jolt_tpu's fib(3) proof of one of CASES, as the arrays above."""
     from jolt_tpu.commitment import MockCommitmentScheme
     from jolt_tpu.commitment.hyperkzg import HyperKZG
     from jolt_tpu.field import fr_spec
@@ -82,35 +97,40 @@ def prove_case(case: str) -> dict:
         spec = fr_spec()
         vm = mini_vm([AddInstruction, BneInstruction],
                      [TruncateOverflowSubtable(32), IdentitySubtable(),
-                      EqSubtable()], M_mini=M_MINI, spec=spec)
-        steps, io, rows = trace_program(fibonacci_program(FIB_N), vm,
+                      EqSubtable()], M_mini=fx.M_MINI, spec=spec)
+        steps, io, rows = trace_program(fibonacci_program(fx.FIB_N), vm,
                                         max_input_size=32, max_output_size=32,
                                         native=False)
-        pcs = HyperKZG.setup(SRS_LEN) if case == "hyperkzg" \
+        pcs = HyperKZG.setup(fx.SRS_LEN) if case == "hyperkzg" \
             else MockCommitmentScheme(spec)
         pre = vm.preprocess(rows, pcs)
         proof, commitments, transcript, acc = vm.prove(io, steps, pre)
         vm.verify(pre, proof, commitments, debug_transcript=transcript,
                   debug_accumulator=acc)
-        return proof_arrays(transcript, commitments)
+        return fx.proof_arrays(transcript, commitments)
     finally:
         os.environ.pop("JOLT_REFERENCE_PARITY", None)
         if old is not None:
             os.environ["JOLT_REFERENCE_PARITY"] = old
 
 
-def main() -> None:
+def main(argv=None) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
-    sys.path.insert(0, str(ROOT))
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    for case in CASES:
-        arrays = prove_case(case)
-        path = OUT_DIR / f"fib3_{case}.npz"
+    names = [f"fib3_{c}" for c in CASES] + ["narrow_mock", *fx.RV32I_CASES]
+    chosen = list(argv if argv is not None else sys.argv[1:]) or names
+    for name in chosen:
+        if name not in names:
+            raise SystemExit(f"unknown case {name}; cases: {names}")
+        t0 = time.perf_counter()
+        arrays = prove_case(name[len("fib3_"):]) if name.startswith("fib3_") \
+            else prove_rv32i_case(name)
+        path = OUT_DIR / f"{name}.npz"
         np.savez_compressed(path, **arrays)
         print(f"{path.relative_to(ROOT)}: "
-              f"{arrays['state_history'].shape[0]} transcript states",
-              flush=True)
+              f"{len(next(iter(arrays.values())))} transcript states, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

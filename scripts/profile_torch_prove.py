@@ -3,12 +3,14 @@
 
     python3 scripts/profile_torch_prove.py [--nv 20]           # Surge XOR
     python3 scripts/profile_torch_prove.py --workload fib      # Jolt VM
+    python3 scripts/profile_torch_prove.py --workload sha2     # full VM
 
 on a CUDA card.  `surge` sets up as `python -m jolt_tpu_torch.cli
 surge-bench` does (C = 4, M = 2^16, operands from default_rng(0)); `fib`
 as chip_smoke.py's phase 6 (fibonacci(13000) on the mini VM, T = 2^16,
-C = 4, M = 2^16, HyperKZG).  One warm-up prove and one unprofiled prove,
-then:
+C = 4, M = 2^16, HyperKZG); `sha2` as its phase 8 (sha2-chain(13) on
+rv32i_vm(), the input 0x05 x 32, T = 2^16, C = 4, M = 2^16, HyperKZG).
+One warm-up prove and one unprofiled prove, then:
 
   1. one prove under torch.profiler (CPU and CUDA activities): wall time,
      the time the card spent in kernels (the union of their intervals),
@@ -109,9 +111,11 @@ def replay_k2(prove, card: str, tag: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("surge", "fib"), default="surge")
+    ap.add_argument("--workload", choices=("surge", "fib", "sha2"),
+                    default="surge")
     ap.add_argument("--nv", type=int, default=20, help="Surge: log2 lookups")
     ap.add_argument("--fib-n", type=int, default=13000)
+    ap.add_argument("--sha2-iters", type=int, default=13)
     ap.add_argument("--unprofiled-only", action="store_true",
                     help="stop after the unprofiled prove (above)")
     ap.add_argument("--replay-k2", action="store_true",
@@ -126,7 +130,9 @@ def main() -> None:
     from jolt_tpu_torch import cli
     from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
     from jolt_tpu_torch.lasso import surge_prove
+    from jolt_tpu_torch.vm.guests import sha2_chain_program
     from jolt_tpu_torch.vm.host import fibonacci_program, trace_program
+    from jolt_tpu_torch.vm.rv32i_vm import rv32i_vm
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -139,11 +145,18 @@ def main() -> None:
         x, y = cli.surge_inputs(np.random.default_rng(0), args.nv)
         run = lambda: surge_prove(pre, pcs, x, y)  # noqa: E731
     else:
-        vm = cli.fib_vm(1 << 16)
-        steps, io_, rows = trace_program(fibonacci_program(args.fib_n), vm,
-                                         max_input_size=32,
-                                         max_output_size=32)
-        tag = f"fib({args.fib_n}) steps={len(steps)}"
+        if args.workload == "fib":
+            vm = cli.fib_vm(1 << 16)
+            steps, io_, rows = trace_program(fibonacci_program(args.fib_n),
+                                             vm, max_input_size=32,
+                                             max_output_size=32)
+            tag = f"fib({args.fib_n}) steps={len(steps)}"
+        else:
+            vm = rv32i_vm()
+            steps, io_, rows = trace_program(
+                sha2_chain_program(args.sha2_iters), vm,
+                inputs=cli.SHA2_INPUT)
+            tag = f"sha2-chain({args.sha2_iters}) steps={len(steps)}"
         pre = vm.preprocess(rows, HyperKZG.setup(
             vm.required_srs_len(io_, steps, rows)))
         run = lambda: vm.prove(io_, steps, pre)  # noqa: E731

@@ -39,11 +39,11 @@ def _mont_limbs(rng, shape):
     return jfd.pack_ints(vals, shape)
 
 
-def _round_inputs(s, seed):
+def _round_inputs(s, seed, batch=B):
     rng = np.random.default_rng(seed)
-    l = np.ascontiguousarray(np.moveaxis(_mont_limbs(rng, (B, s)), 0, 1))
-    r = np.ascontiguousarray(np.moveaxis(_mont_limbs(rng, (B, s)), 0, 1))
-    return l, r, _mont_limbs(rng, (s,)), _mont_limbs(rng, (B,))
+    l = np.ascontiguousarray(np.moveaxis(_mont_limbs(rng, (batch, s)), 0, 1))
+    r = np.ascontiguousarray(np.moveaxis(_mont_limbs(rng, (batch, s)), 0, 1))
+    return l, r, _mont_limbs(rng, (s,)), _mont_limbs(rng, (batch,))
 
 
 def _same(jax_outs, torch_outs):
@@ -54,6 +54,16 @@ def _same(jax_outs, torch_outs):
 @pytest.mark.parametrize("s", [2, 64])
 def test_pair_cubic_evals(s):
     l, r, eq, coeffs = _round_inputs(s, s)
+    want = jgp._pair_cubic_evals(JFR, *map(jnp.asarray, (l, r, eq, coeffs)))
+    got = tgp._pair_cubic_evals(FR, *map(limbs_from_numpy, (l, r, eq, coeffs)))
+    _same([want], [got])
+
+
+@pytest.mark.parametrize("batch", [81, 110])
+def test_pair_cubic_evals_at_the_full_vm_batches(batch):
+    """The batches of the full RV32I VM's instruction-lookup GPs: 81
+    init/final and 110 read/write circuits."""
+    l, r, eq, coeffs = _round_inputs(16, batch, batch)
     want = jgp._pair_cubic_evals(JFR, *map(jnp.asarray, (l, r, eq, coeffs)))
     got = tgp._pair_cubic_evals(FR, *map(limbs_from_numpy, (l, r, eq, coeffs)))
     _same([want], [got])

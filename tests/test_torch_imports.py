@@ -79,6 +79,8 @@ _ENTRY_POINTS = {
         [], MockCommitmentScheme()),
     "cli.prove_fib": lambda: cli.prove_fib(1),
     "cli.main prove-fib": lambda: cli.main(["prove-fib", "--n", "1"]),
+    "cli.prove_sha2_chain": lambda: cli.prove_sha2_chain(1),
+    "cli.main prove-sha2-chain": lambda: cli.main(["prove-sha2-chain"]),
 }
 
 

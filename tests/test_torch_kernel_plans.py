@@ -6,17 +6,23 @@ tile (k // shared + j * tile_blocks) * tiles_per_block + w // per_block
 for j = 0, 1, ..., pair index tile * 32 + lane, and circuits g, g + groups,
 ...  `_cells` below walks that map for a plan, so these tests show that
 every (circuit, pair index) is covered exactly once, within the kernel's
-limits, for every batch size the provers use and every round size.
+limits, for every batch size the provers use and every round size, and
+that a batch above one launch's cap is split so that each circuit is
+summed once.
 """
 import re
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from jolt_tpu_torch import _native as nat
 from jolt_tpu_torch.curve import kernels as ck  # noqa: F401 (registers K5-K7)
+from jolt_tpu_torch.field import arith
+from jolt_tpu_torch.field import device as fd
 from jolt_tpu_torch.field import kernels as fk
+from jolt_tpu_torch.field.spec import fr_spec
 
 HS = sorted({*range(1, 40), 63, 64, 65, 100, 255, 256, 257, 1000,
              *(1 << k for k in range(20)), (1 << 19) - 1, (1 << 14) + 3})
@@ -47,7 +53,7 @@ def _cells(B, h, groups, blocks):
     return visits, circuits
 
 
-@pytest.mark.parametrize("B", [1, 7, 8, 43, 64])
+@pytest.mark.parametrize("B", [1, 7, 8, 43, 64, 65, 81, 110, 128])
 def test_plan_covers_each_pair_once(B):
     for h in HS:
         groups, blocks = fk.gp_evals_plan(B, h)
@@ -69,9 +75,44 @@ def test_plan_fills_the_card_at_the_fib_gp_round():
 
 
 def test_plan_rejects_what_the_kernel_refuses():
-    for B, h in ((0, 8), (65, 8), (8, 0)):
+    for B, h in ((0, 8), (fk.GP_MAX_B + 1, 8), (8, 0)):
         with pytest.raises(ValueError):
             fk.gp_evals_plan(B, h)
+
+
+@pytest.mark.parametrize("B", [1, 64, 128, 129, 200, 256, 300])
+def test_batches_above_the_cap_split_into_launches(B):
+    """Each circuit lies in one launch, every launch has a plan, and the
+    launches are as few as the cap allows."""
+    chunks = fk.gp_batch_chunks(B)
+    assert [b for b0, b1 in chunks for b in range(b0, b1)] == list(range(B))
+    assert len(chunks) == -(-B // fk.GP_MAX_B)
+    for b0, b1 in chunks:
+        assert 1 <= b1 - b0 <= fk.GP_MAX_B
+        fk.gp_evals_plan(b1 - b0, 1 << 10)
+
+
+def test_split_evals_sum_to_the_whole_batch():
+    """K2's evals are linear in the circuits: summed mod p over the
+    launches' slices, as the wrapper adds them, they equal the
+    whole batch's (plain versions on the CPU, B = 200 over two slices)."""
+    spec = fr_spec()
+    B, s = 200, 4
+    g = torch.Generator().manual_seed(7)
+
+    def rand(*shape):
+        vals = torch.randint(0, 1 << 62, (int(np.prod(shape)),), generator=g)
+        return fd.ints_to_device(spec, vals.tolist(), "cpu", shape)
+
+    l = rand(B, s).movedim(0, 1).contiguous()
+    r = rand(B, s).movedim(0, 1).contiguous()
+    eq, coeffs = rand(s), rand(B)
+    parts = [fk.gp_pair_evals_plain(spec, l[b0:b1], r[b0:b1], eq,
+                                    coeffs[:, b0:b1])
+             for b0, b1 in fk.gp_batch_chunks(B)]
+    assert len(parts) == 2
+    total = arith.add(spec, parts[0], parts[1])
+    assert torch.equal(total, fk.gp_pair_evals_plain(spec, l, r, eq, coeffs))
 
 
 def _constexprs(src: str) -> dict[str, int]:

@@ -44,11 +44,11 @@ def _rand(spec, dev, *shape, seed=0):
     return t.to(dev)
 
 
-def _launched(kernel, fn):
+def _launched(kernel, fn, n=1):
     before = kernel.launches
     out = fn()
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert kernel.launches == before + n
     return out
 
 
@@ -80,15 +80,19 @@ def test_mont_mul_bl_on_views(dev, s):
            fk.mont_mul_bl_plain(spec, l, r))
 
 
-@pytest.mark.parametrize("B", [1, 7, 8, 43, 64])
+@pytest.mark.parametrize("B", [1, 7, 8, 43, 64, 65, 81, 110, 128, 200])
 @pytest.mark.parametrize("s", [2, 6, 64, 1026, 1 << 17])
 def test_gp_pair_round(dev, B, s):
+    """B up to the full VM's 110 (its toggled read/write GP) and 81 (its
+    init/final GP), the kernel's cap of 128, and 200, which the wrapper
+    splits over two launches."""
     spec = fr_spec()
     l = _rand(spec, dev, B, s, seed=3).movedim(0, 1).contiguous()
     r = _rand(spec, dev, B, s, seed=4).movedim(0, 1).contiguous()
     eq, coeffs = _rand(spec, dev, s, seed=5), _rand(spec, dev, B, seed=6)
     _equal(_launched(fk.GP_PAIR_EVALS,
-                     lambda: fk.gp_pair_evals(spec, l, r, eq, coeffs)),
+                     lambda: fk.gp_pair_evals(spec, l, r, eq, coeffs),
+                     len(fk.gp_batch_chunks(B))),
            fk.gp_pair_evals_plain(spec, l, r, eq, coeffs))
     rc = fd.scalar_to_device(spec, 0x1234567 ** 9, "cpu")
     _equal(_launched(fk.GP_PAIR_BIND,

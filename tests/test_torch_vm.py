@@ -23,6 +23,7 @@ from jolt_tpu_torch.commitment.mock import MockCommitmentScheme
 from jolt_tpu_torch.field.host import FElt
 from jolt_tpu_torch.field.spec import fr_spec
 from jolt_tpu_torch.subprotocols.sumcheck import VerificationError
+from jolt_tpu_torch.vm import fixtures as fx
 from jolt_tpu_torch.vm.host import fibonacci_program, trace_program
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -30,14 +31,12 @@ CASES = ("mock", "hyperkzg", "parity")
 
 
 def _freeze_script():
+    """scripts/freeze_port_fixtures.py, which drives jolt_tpu."""
     spec = importlib.util.spec_from_file_location(
         "freeze_port_fixtures", ROOT / "scripts" / "freeze_port_fixtures.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-FREEZE = _freeze_script()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -55,10 +54,10 @@ def fib3(request):
     case = request.param
     mp = pytest.MonkeyPatch()
     mp.setenv("JOLT_REFERENCE_PARITY", "1" if case == "parity" else "0")
-    vm = cli.fib_vm(FREEZE.M_MINI)
-    steps, io, rows = trace_program(fibonacci_program(FREEZE.FIB_N), vm,
+    vm = cli.fib_vm(fx.M_MINI)
+    steps, io, rows = trace_program(fibonacci_program(fx.FIB_N), vm,
                                     max_input_size=32, max_output_size=32)
-    pcs = HyperKZG.setup(FREEZE.SRS_LEN, device="cpu") \
+    pcs = HyperKZG.setup(fx.SRS_LEN, device="cpu") \
         if case == "hyperkzg" else MockCommitmentScheme()
     pre = vm.preprocess(rows, pcs, device="cpu")
     proof, commitments, transcript, acc = vm.prove(io, steps, pre)
@@ -68,7 +67,7 @@ def fib3(request):
 
 
 def test_transcript_and_commitments_match_jolt_tpu(fib3):
-    got = FREEZE.proof_arrays(fib3["transcript"], fib3["commitments"])
+    got = fx.proof_arrays(fib3["transcript"], fib3["commitments"])
     with np.load(ROOT / "fixtures" / "port" / f"fib3_{fib3['case']}.npz") as z:
         want = {k: z[k] for k in z.files}
     assert sorted(got) == sorted(want)
@@ -96,7 +95,7 @@ def test_verifier_accepts_and_rejects_a_bumped_opening(fib3):
 @pytest.mark.parametrize("case", CASES)
 def test_frozen_fixtures_match_a_live_jolt_tpu_prove(case):
     """jolt_tpu proves fib(3) live (minutes of XLA compiles per case)."""
-    want = FREEZE.prove_case(case)
+    want = _freeze_script().prove_case(case)
     with np.load(ROOT / "fixtures" / "port" / f"fib3_{case}.npz") as z:
         assert sorted(z.files) == sorted(want)
         for k in z.files:
