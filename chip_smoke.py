@@ -52,9 +52,24 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      the card proves each frozen case of jolt_tpu_torch/vm/fixtures.py
      (fibonacci(8), the M-extension program, a program of every load and
      store width, sha2_chain_program(1)): its transcript and its
-     commitments' digests must equal jolt_tpu's (fixtures/port/<case>.npz).
-Then a {"kernels": [...]} JSON line, the card line again, and last
-{"ok": true, "device": {...}}.  Imports nothing of JAX or jolt_tpu.
+     commitments' digests must equal jolt_tpu's (fixtures/port/<case>.npz);
+     then the load/store program with HyperKZG over the 2^16-point SRS
+     fixture, whose transcript, commitment digests and arkworks proof
+     bytes' SHA-256 must equal jolt_tpu's;
+ 10. the user's path (launch counts set to 0 before it): sha3_chain_program
+     (2) written to an ELF file by tracer/elf_write.py, its bytes given to
+     sdk.build_provable (HyperKZG, on the card), whose prove decodes them,
+     traces them with the native tracer to 44,479 steps (T = 2^16) and
+     proves (the warm-up; K1-K5 must launch, and their largest calls are
+     replayed as in phase 8); the output must equal hashlib's sha3_256
+     iterated twice; the proof's arkworks bytes (proof_size_bytes) are
+     re-read by the structure reader; its canonical bytes are read back,
+     and the proof read back verifies, and is rejected with one opening
+     bumped by one; then a timed prove and verify through the SDK.
+Phase 1 also builds the native tracer and Keccak (g++) from their sources
+and prints the compiler and the libraries' paths.  Then a {"kernels":
+[...]} JSON line, the card line again, and last {"ok": true, "device":
+{...}}.  Imports nothing of JAX or jolt_tpu.
 K7 (jac_double) lies on neither main path (see csrc/point.cu): phase 2
 holds it against its plain version, and the launch check exempts it.
 """
@@ -65,6 +80,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -81,6 +97,7 @@ MULS_PER_PRODUCT = 264             # 32-bit multiplies one 256-bit Montgomery
 NV = 20
 FIB_N, FIB_STEPS, FIB_T, FIB_M = 13000, 65005, 1 << 16, 1 << 16
 SHA2_ITERS, SHA2_STEPS, SHA2_T = 13, 62413, 1 << 16
+SHA3_ITERS, SHA3_STEPS, SHA3_T = 2, 44479, 1 << 16
 GP_KERNELS = ("gp_pair_evals", "gp_pair_bind")
 REGS_PER_SM, SMEM_PER_SM, MAX_WARPS_PER_SM = 65536, 228 * 1024, 64
 OFF_PATH = {"jac_double": "no prove path of either package launches "
@@ -228,7 +245,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false")
     sys.path.insert(0, str(ROOT))
     from jolt_tpu_torch import _native as nat
-    from jolt_tpu_torch import cli
+    from jolt_tpu_torch import cli, native, sdk
     from jolt_tpu_torch.curve import device as cd
     from jolt_tpu_torch.curve import kernels as ck
     from jolt_tpu_torch.curve.bn254 import G1Jacobian
@@ -244,8 +261,14 @@ def main() -> None:
     from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
     from jolt_tpu_torch.commitment.mock import MockCommitmentScheme
     from jolt_tpu_torch.subprotocols.sumcheck import VerificationError
+    from jolt_tpu_torch.tracer.elf_write import write_elf
+    from jolt_tpu_torch.utils.ark_proof import (
+        deserialize_jolt_proof_structure, jolt_proof_bytes,
+        serialize_surge_proof)
     from jolt_tpu_torch.vm.guests import (sha2_chain_expected,
-                                          sha2_chain_program)
+                                          sha2_chain_program,
+                                          sha3_chain_expected,
+                                          sha3_chain_program)
     from jolt_tpu_torch.vm import fixtures as fx
     from jolt_tpu_torch.vm.host import fibonacci_program, trace_program
     from jolt_tpu_torch.vm.rv32i_vm import rv32i_vm
@@ -281,6 +304,17 @@ def main() -> None:
                   flush=True)
     clock_hz = max_sm_clock_hz()
     imad_rate = SMS * IMAD_PER_CLK_SM * clock_hz
+    t0 = time.perf_counter()
+    native_libs = (("tracer.cpp", "libjolt_tracer", native.tracer_library),
+                   ("keccak.cpp", "libjolt_keccak", native.keccak_library))
+    for src, stem, load in native_libs:      # from the sources, always
+        native.lib_path(src, stem).unlink(missing_ok=True)
+        load.cache_clear()
+        load()
+    print(f"phase 1: native tracer and Keccak built by "
+          f"{native.compiler_version()} in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(str(native.lib_path(src, stem).relative_to(ROOT))
+                      for src, stem, _ in native_libs), flush=True)
     print(f"phase 1: max SM clock {clock_hz / 1e6:.0f} MHz; INT32 multiply "
           f"rate {imad_rate:.4g}/s; {MULS_PER_PRODUCT} 32-bit multiplies per "
           f"Montgomery product", flush=True)
@@ -522,6 +556,9 @@ def main() -> None:
           f"[{card}]", flush=True)
     print(f"phase 4: launches per nv={NV} prove {json.dumps(prove_counts)}",
           flush=True)
+    print(f"phase 4: Surge XOR nv={NV} proof_size_bytes="
+          f"{len(serialize_surge_proof(proof, pre.num_memories))} "
+          "(arkworks SurgeProof bytes)", flush=True)
 
     # -- phase 5: reference on a small input ------------------------------
     xs, ys = cli.surge_inputs(np.random.default_rng(1), 10)
@@ -549,7 +586,7 @@ def main() -> None:
     print("phase 5: Surge nv=10 card == CPU (transcript, 16 commitments); "
           "2 commitments == host MSM", flush=True)
 
-    # -- phases 6 and 8: the Jolt VM's main paths -------------------------
+    # -- phases 6, 8 and 10: the Jolt VM's main paths ---------------------
     # Through setup and the warm-up prove, each kernel's wrapper is wrapped
     # where the prover's modules look it up (field/kernels.py for K1-K4,
     # curve/device.py for K5-K7), keeping a copy of the inputs of its
@@ -573,22 +610,9 @@ def main() -> None:
             return type(x)(copy(y) for y in x)
         return x
 
-    def vm_path(phase, label, vm, program, want_steps, want_T,
-                by_batch=False, **trace_args):
-        """Trace, set up, warm-up prove (recorded and replayed), accept,
-        tamper, timed prove and verify; returns the launch counts of the
-        main path (setup + warm-up prove) and of the timed prove, and the
-        program's I/O."""
-        t0 = time.perf_counter()
-        steps, io, rows = trace_program(program, vm, **trace_args)
-        trace_s = time.perf_counter() - t0
-        T = 1 << (len(steps) - 1).bit_length()
-        if (len(steps), T) != (want_steps, want_T):
-            fail(f"{label} traced to {len(steps)} steps, padded to {T}, not "
-                 f"{want_steps} and {want_T}")
-        print(f"{phase}: {label} traced to {len(steps)} steps ({len(rows)} "
-              f"bytecode rows) in {trace_s:.2f} s, padded to T = 2^"
-              f"{T.bit_length() - 1}", flush=True)
+    def start_recording(by_batch):
+        """Wrap each kernel's wrapper at its sites; returns the dict that
+        the wrapped calls fill with the inputs of the largest calls."""
         largest = {}
 
         def keep_largest(name, fn):
@@ -604,24 +628,16 @@ def main() -> None:
 
         for name, mod in sites.items():
             setattr(mod, name, keep_largest(name, KERNEL[name][0]))
-        nat.reset_launch_counts()
-        t0 = time.perf_counter()
-        srs_len = vm.required_srs_len(io, steps, rows)
-        pcs_v = HyperKZG.setup(srs_len, device=dev)
-        pre_v = vm.preprocess(rows, pcs_v)
-        torch.cuda.synchronize()
-        setup_v = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        proof, com, tr, acc = vm.prove(io, steps, pre_v)
-        torch.cuda.synchronize()
-        warm_v = time.perf_counter() - t0
-        counts = nat.launch_counts()
+        return largest
+
+    def stop_recording():
         for name, mod in sites.items():
             setattr(mod, name, KERNEL[name][0])
-        print(f"{phase}: HyperKZG setup ({srs_len} points) + preprocessing "
-              f"{setup_v:.3f} s; warm-up prove {warm_v:.3f} s; main-path "
-              f"launches (setup + this prove) {json.dumps(counts)}",
-              flush=True)
+
+    def check_and_replay(phase, label, counts, largest):
+        """K1-K5 must have launched, every launch through the recording
+        wrappers; then each recorded call is replayed against the plain
+        version (the largest of each kernel is its row for this path)."""
         missing = [k for k in ("mont_mul", "mont_mul_bl", "gp_pair_evals",
                                "gp_pair_bind", "proj_cadd") if counts[k] <= 0]
         if missing:
@@ -643,6 +659,42 @@ def main() -> None:
                     record=key == top[name])
             del args
         torch.cuda.empty_cache()
+
+    def vm_path(phase, label, vm, program, want_steps, want_T,
+                by_batch=False, **trace_args):
+        """Trace, set up, warm-up prove (recorded and replayed), accept,
+        tamper, timed prove and verify; returns the launch counts of the
+        main path (setup + warm-up prove) and of the timed prove, and the
+        program's I/O."""
+        t0 = time.perf_counter()
+        steps, io, rows = trace_program(program, vm, **trace_args)
+        trace_s = time.perf_counter() - t0
+        T = 1 << (len(steps) - 1).bit_length()
+        if (len(steps), T) != (want_steps, want_T):
+            fail(f"{label} traced to {len(steps)} steps, padded to {T}, not "
+                 f"{want_steps} and {want_T}")
+        print(f"{phase}: {label} traced to {len(steps)} steps ({len(rows)} "
+              f"bytecode rows) in {trace_s:.2f} s, padded to T = 2^"
+              f"{T.bit_length() - 1}", flush=True)
+        largest = start_recording(by_batch)
+        nat.reset_launch_counts()
+        t0 = time.perf_counter()
+        srs_len = vm.required_srs_len(io, steps, rows)
+        pcs_v = HyperKZG.setup(srs_len, device=dev)
+        pre_v = vm.preprocess(rows, pcs_v)
+        torch.cuda.synchronize()
+        setup_v = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proof, com, tr, acc = vm.prove(io, steps, pre_v)
+        torch.cuda.synchronize()
+        warm_v = time.perf_counter() - t0
+        counts = nat.launch_counts()
+        stop_recording()
+        print(f"{phase}: HyperKZG setup ({srs_len} points) + preprocessing "
+              f"{setup_v:.3f} s; warm-up prove {warm_v:.3f} s; main-path "
+              f"launches (setup + this prove) {json.dumps(counts)}",
+              flush=True)
+        check_and_replay(phase, label, counts, largest)
         t0 = time.perf_counter()
         vm.verify(pre_v, proof, com, debug_transcript=tr,
                   debug_accumulator=acc)
@@ -745,6 +797,113 @@ def main() -> None:
               f"== jolt_tpu's ({time.perf_counter() - t0:.2f} s)",
               flush=True)
         del pre9, c9, t9
+    for case in fx.RV32I_HYPERKZG_CASES:
+        with np.load(ROOT / "fixtures" / "port" / f"{case}.npz") as z:
+            want9 = {k: z[k] for k in z.files}
+        t0 = time.perf_counter()
+        program9, inputs9 = fx.case_program(case)
+        steps9, io9, rows9 = trace_program(program9, vm9, inputs=inputs9)
+        pcs9 = HyperKZG.setup(vm9.required_srs_len(io9, steps9, rows9),
+                              device=dev)
+        pre9 = vm9.preprocess(rows9, pcs9)
+        p9, c9, t9, _ = vm9.prove(io9, steps9, pre9)
+        ark9 = jolt_proof_bytes(vm9, pre9, p9, c9)
+        got9 = fx.proof_arrays(t9, c9, digest=True, ark=ark9)
+        bad9 = fx.differing(got9, want9)
+        if bad9:
+            fail(f"{case}: {bad9} differ from jolt_tpu's "
+                 f"(fixtures/port/{case}.npz)")
+        print(f"phase 9: {case} ({len(steps9)} steps) M=2^16 HyperKZG "
+              f"({pcs9.pk.n} points) on the card: {len(t9.state_history)} "
+              f"transcript states, "
+              f"{len(c9['read_write']) + len(c9['init_final'])} commitment "
+              f"digests and the {len(ark9)} arkworks proof bytes' SHA-256 "
+              f"== jolt_tpu's ({time.perf_counter() - t0:.2f} s)",
+              flush=True)
+        del pre9, pcs9, p9, c9, t9
+    torch.cuda.empty_cache()
+
+    # -- phase 10: the user's path: ELF bytes -> SDK -> proof bytes -------
+    with tempfile.TemporaryDirectory() as td:
+        elf_path = Path(td) / f"sha3_chain_{SHA3_ITERS}.elf"
+        write_elf(str(elf_path), sha3_chain_program(SHA3_ITERS))
+        elf = elf_path.read_bytes()
+    label10 = f"sha3-chain({SHA3_ITERS})"
+    print(f"phase 10: sha3_chain_program({SHA3_ITERS}) written to an ELF "
+          f"file of {len(elf)} bytes", flush=True)
+    largest10 = start_recording(by_batch=True)
+    nat.reset_launch_counts()
+    t0 = time.perf_counter()
+    prove10, verify10 = sdk.build_provable(elf, pcs="hyperkzg", device=dev)
+    out10, art10 = prove10(cli.SHA2_INPUT)
+    torch.cuda.synchronize()
+    warm10 = time.perf_counter() - t0
+    sha3_counts = nat.launch_counts()
+    stop_recording()
+    T10 = 1 << (art10.trace_length - 1).bit_length()
+    if (art10.trace_length, T10) != (SHA3_STEPS, SHA3_T):
+        fail(f"{label10} traced to {art10.trace_length} steps, padded to "
+             f"{T10}, not {SHA3_STEPS} and {SHA3_T}")
+    print(f"phase 10: build_provable(ELF bytes) + warm-up prove (decode, "
+          f"native trace to {art10.trace_length} steps, T = 2^"
+          f"{T10.bit_length() - 1}, SRS and preprocessing, prove) "
+          f"{warm10:.3f} s; main-path launches {json.dumps(sha3_counts)}",
+          flush=True)
+    check_and_replay("phase 10", label10, sha3_counts, largest10)
+    del largest10
+    if out10[:32] != sha3_chain_expected(cli.SHA2_INPUT, SHA3_ITERS):
+        fail(f"{label10}: the guest's output {out10[:32].hex()} is not "
+             "hashlib's")
+    print(f"phase 10: {label10} output {out10[:32].hex()} == "
+          f"hashlib.sha3_256 iterated {SHA3_ITERS} times", flush=True)
+    ark10 = sdk.ark_proof_bytes(art10)
+    m10 = len(art10.proof.instruction_lookups.primary_sumcheck.openings
+              .E_poly_openings)
+    vm10 = rv32i_vm()
+    st10 = deserialize_jolt_proof_structure(
+        ark10, vm10.C, m10, len(vm10.instruction_classes))
+    if (st10["trace_length"], st10["outputs"]) != \
+            (art10.trace_length, bytes(art10.proof.program_io.outputs)) \
+            or not 0 < st10["_proof_end"] < len(ark10):
+        fail(f"{label10}: the arkworks bytes do not read back")
+    canon10 = sdk.proof_to_bytes(art10)
+    back10 = sdk.proof_from_bytes(canon10)
+    if sdk.proof_to_bytes(back10) != canon10:
+        fail(f"{label10}: the canonical bytes do not read back identically")
+    t0 = time.perf_counter()
+    verify10(back10)
+    print(f"phase 10: proof_size_bytes={len(ark10)} (arkworks "
+          f"JoltHyperKZGProof, re-read by the structure reader); canonical "
+          f"{len(canon10)} bytes read back; the proof read back verifies "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    ops10 = back10.proof.instruction_lookups.primary_sumcheck.openings
+    ops10.lookup_outputs_opening = ops10.lookup_outputs_opening + FElt(1, FR)
+    try:
+        verify10(back10)
+    except VerificationError as e:
+        print(f"phase 10: the proof read back with its lookup-outputs "
+              f"opening bumped by one is rejected ({e})", flush=True)
+    else:
+        fail(f"{label10}: a proof with an opening bumped by one verified")
+    del art10, back10
+    nat.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out10, art10 = prove10(cli.SHA2_INPUT)
+    torch.cuda.synchronize()
+    prove10_s = time.perf_counter() - t0
+    sha3_prove_counts = nat.launch_counts()
+    peak10 = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    verify10(art10)
+    verify10_s = time.perf_counter() - t0
+    print(f"phase 10: SDK {label10} T=2^{T10.bit_length() - 1} C=4 M=2^16 "
+          f"HyperKZG: prove_s={prove10_s:.3f} (native trace included) "
+          f"verify_s={verify10_s:.3f} peak_mem_GB={peak10:.2f} [{card}]",
+          flush=True)
+    print(f"phase 10: launches per {label10} prove "
+          f"{json.dumps(sha3_prove_counts)}", flush=True)
+    del prove10, verify10, art10
     torch.cuda.empty_cache()
 
     # -- summary ----------------------------------------------------------
@@ -765,13 +924,16 @@ def main() -> None:
             "launches_fib_main_path": fib_counts[k.name],
             "launches_per_fib_prove": fib_prove_counts[k.name],
             "launches_sha2_main_path": sha2_counts[k.name],
-            "launches_per_sha2_prove": sha2_prove_counts[k.name]}
+            "launches_per_sha2_prove": sha2_prove_counts[k.name],
+            "launches_sha3_main_path": sha3_counts[k.name],
+            "launches_per_sha3_prove": sha3_prove_counts[k.name]}
         row.update(usage[k.name])
         if k.name in more:
             row["more_shapes"] = more[k.name]
         for ph, key in ((f"phase 6 fib({FIB_N})", "at_fib_shape"),
                         (f"phase 8 sha2-chain({SHA2_ITERS})",
-                         "at_sha2_shape")):
+                         "at_sha2_shape"),
+                        (f"phase 10 {label10}", "at_sha3_shape")):
             if ph in results[k.name]:
                 row[key] = results[k.name][ph]
         if k.name in OFF_PATH:

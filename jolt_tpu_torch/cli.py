@@ -6,14 +6,22 @@
         [--device cuda|cpu]
     python -m jolt_tpu_torch.cli prove-sha2-chain [--iters 1]
         [--pcs mock|hyperkzg] [--device cuda|cpu]
+    python -m jolt_tpu_torch.cli prove-guest --guest GUEST [--n 1]
+        [--pcs mock|hyperkzg] [--device cuda|cpu]
+    python -m jolt_tpu_torch.cli analyze [--guest sha2-chain] [--n 1]
 
 `surge-bench` is the fork's headline benchmark (bench.rs:109-210), as
 jolt_tpu's `cli.py surge-bench` runs it: Surge XOR lookups with C = 4,
 M = 2^16 and a real HyperKZG SRS sized for the largest nv; random operands
 from numpy's default_rng(0); `--prover-runs` averaged prove times and
 `--verifier-runs` averaged verify times.  One JSON line per nv, with the
-JAX CLI's keys and the device's name.  `proof_size_bytes` is null until
-the proof serializer is ported.
+JAX CLI's keys and the device's name.  `proof_size_bytes` is the length of
+the proof's arkworks bytes (utils/ark_proof.py: `serialize_surge_proof`;
+for the VM, `serialize_jolt_hyperkzg_proof`, proof and commitments), the
+size the reference's bench prints; it is null for the mock PCS, whose
+proofs hold no curve points.  `prove-guest` proves one of GUESTS on
+rv32i_vm() and checks its output against the guest's host oracle;
+`analyze` prints a guest's trace length and per-opcode histogram.
 """
 from __future__ import annotations
 
@@ -32,6 +40,9 @@ from .instructions import AddInstruction, BneInstruction, XorInstruction
 from .lasso import SurgePreprocessing, surge_prove, surge_verify
 from .subtables.rv32i import (EqSubtable, IdentitySubtable,
                               TruncateOverflowSubtable)
+from .utils.ark_proof import jolt_proof_bytes, serialize_surge_proof
+from .vm import guests
+from .vm.analyze import trace_analyze
 from .vm.guests import SHA2_INPUT, sha2_chain_expected, sha2_chain_program
 from .vm.host import fibonacci_program, trace_program
 from .vm.rv32i_vm import mini_vm, rv32i_vm
@@ -91,7 +102,8 @@ def surge_bench(nv_list, prover_runs: int = 10, verifier_runs: int = 50,
             "surge_xor_nv": nv,
             "prover_runs": prover_runs,
             "prove_seconds_avg": total / max(1, prover_runs),
-            "proof_size_bytes": None,
+            "proof_size_bytes": len(serialize_surge_proof(
+                proof, pre.num_memories)),
             "verifier_runs": verifier_runs,
             "verify_seconds_avg": verify_avg,
             "device": device_name(dev),
@@ -108,8 +120,8 @@ def fib_vm(M: int = 1 << 8):
 def _prove_verify(vm, program, pcs_name: str, dev: torch.device,
                   **trace_args) -> tuple[dict, bytes]:
     """Trace `program`, prove it and verify the proof on `dev`; returns the
-    trace length and the timings (seconds), and the program's output
-    bytes."""
+    trace length, the timings (seconds) and the proof's arkworks size (null
+    for the mock PCS), and the program's output bytes."""
     steps, io, rows = trace_program(program, vm, **trace_args)
     if pcs_name == "hyperkzg":
         pcs = HyperKZG.setup(vm.required_srs_len(io, steps, rows), device=dev)
@@ -122,9 +134,12 @@ def _prove_verify(vm, program, pcs_name: str, dev: torch.device,
     prove_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     vm.verify(pre, proof, commitments)
+    verify_s = time.perf_counter() - t0
+    size = len(jolt_proof_bytes(vm, pre, proof, commitments)) \
+        if pcs_name == "hyperkzg" else None
     return {"trace_length": len(steps), "pcs": pcs_name,
-            "prove_seconds": prove_s,
-            "verify_seconds": time.perf_counter() - t0,
+            "prove_seconds": prove_s, "verify_seconds": verify_s,
+            "proof_size_bytes": size,
             "device": device_name(dev)}, bytes(io.outputs)
 
 
@@ -150,6 +165,59 @@ def prove_sha2_chain(iters: int = 1, pcs_name: str = "mock", device=None):
     return {"sha2_chain_iters": iters, **res}
 
 
+def _le32(v: int) -> bytes:
+    return v.to_bytes(4, "little")
+
+
+# name -> (program of n, inputs, expected output of n); jolt_tpu's
+# cli.py:176-259 guests and their output checks
+GUESTS = {
+    "collatz": (guests.collatz_program, b"",
+                lambda n: _le32(guests.collatz_expected(n))),
+    "sha3-chain": (guests.sha3_chain_program, SHA2_INPUT,
+                   lambda n: guests.sha3_chain_expected(SHA2_INPUT, n)),
+    "alloc": (guests.alloc_sum_program, b"",
+              lambda n: _le32(guests.alloc_sum_expected(n))),
+    "multi-function": (guests.multi_function_program, b"",
+                       lambda n: _le32(guests.multi_function_expected(n))),
+    "stdlib": (guests.stdlib_program, b"", guests.stdlib_expected),
+    "muldiv": (lambda n: guests.muldiv_program(), b"",
+               lambda n: _le32(guests.muldiv_expected())),
+    "fibonacci": (fibonacci_program, b"", None),
+    "sha2-ex": (lambda n: sha2_chain_program(1), SHA2_INPUT,
+                lambda n: sha2_chain_expected(SHA2_INPUT, 1)),
+    "sha3-ex": (lambda n: guests.sha3_chain_program(1), SHA2_INPUT,
+                lambda n: guests.sha3_chain_expected(SHA2_INPUT, 1)),
+    "sha2-chain": (sha2_chain_program, SHA2_INPUT,
+                   lambda n: sha2_chain_expected(SHA2_INPUT, n)),
+}
+
+
+def prove_guest(guest: str, n: int = 1, pcs_name: str = "mock",
+                device=None):
+    """Trace one of GUESTS (n iterations, or collatz's start value), prove
+    it on rv32i_vm() and verify the proof; raises if the guest's output is
+    not its host oracle's.  Returns the timings (seconds) as a dict."""
+    build, inputs, expected = GUESTS[guest]
+    res, outputs = _prove_verify(rv32i_vm(), build(n), pcs_name,
+                                 resolve_device(device), inputs=inputs)
+    if expected is not None:
+        want = expected(n)
+        if outputs[:len(want)] != want:
+            raise AssertionError(f"{guest}: the guest's output is not its "
+                                 "oracle's")
+    return {"guest": guest, "n": n, **res}
+
+
+def analyze(guest: str = "sha2-chain", n: int = 1) -> dict:
+    """A guest's trace length and per-opcode counts (host/analyze.rs:27-44),
+    traced by the native tracer."""
+    build, inputs, _ = GUESTS[guest]
+    summary = trace_analyze(build(n), rv32i_vm(), inputs=inputs)
+    return {"guest": guest, "n": n, "trace_length": summary.trace_len(),
+            "opcodes": {op.name: k for op, k in summary.analyze()}}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m jolt_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -170,7 +238,24 @@ def main(argv=None) -> None:
     ps.add_argument("--iters", type=int, default=1)
     ps.add_argument("--pcs", choices=("mock", "hyperkzg"), default="mock")
     ps.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    pg = sub.add_parser("prove-guest", help="prove + verify an example "
+                        "guest on the full RV32I VM")
+    pg.add_argument("--guest", choices=tuple(GUESTS), default="collatz")
+    pg.add_argument("--n", type=int, default=1,
+                    help="iterations (chains) or start value (collatz)")
+    pg.add_argument("--pcs", choices=("mock", "hyperkzg"), default="mock")
+    pg.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    an = sub.add_parser("analyze", help="a guest's per-opcode histogram")
+    an.add_argument("--guest", choices=tuple(GUESTS), default="sha2-chain")
+    an.add_argument("--n", type=int, default=1)
     args = ap.parse_args(argv)
+    if args.cmd == "prove-guest":
+        print(json.dumps(prove_guest(args.guest, args.n, args.pcs,
+                                     device=args.device)), flush=True)
+        return
+    if args.cmd == "analyze":
+        print(json.dumps(analyze(args.guest, args.n)), flush=True)
+        return
     if args.cmd == "prove-fib":
         print(json.dumps(prove_fib(args.n, args.pcs, device=args.device)),
               flush=True)

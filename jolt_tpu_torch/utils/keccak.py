@@ -2,11 +2,14 @@
 
 The reference's Fiat-Shamir transcript hashes with sha3::Keccak256
 (jolt-core/src/utils/transcript.rs:4).  hashlib only ships SHA3 (0x06
-padding), so Keccak-f[1600] is implemented here in pure Python, with the
-rho/pi lane moves precomputed into one table.  Host-side only: a Surge
-proof at 2^20 lookups is about three thousand transcript events.
+padding).  `keccak256` runs the port's native Keccak-f[1600]
+(native/keccak.cpp, built by g++ at first use; a failed build raises);
+`keccak256_py`, the same in pure Python with the rho/pi lane moves
+precomputed into one table, stays as its oracle.
 """
 from __future__ import annotations
+
+from .. import native
 
 _ROT = [
     [0, 36, 3, 41, 18],
@@ -67,6 +70,10 @@ _RATE = 136  # bytes, for 256-bit output
 
 
 def keccak256(data: bytes) -> bytes:
+    return native.keccak256(bytes(data))
+
+
+def keccak256_py(data: bytes) -> bytes:
     state = [0] * 25
     # absorb with original Keccak padding 0x01 ... 0x80
     padded = bytearray(data)

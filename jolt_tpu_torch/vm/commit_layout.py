@@ -76,6 +76,10 @@ class CommitLayout:
         assert s.stop - s.start == 1, f"{name} is not a singleton section"
         return items[s.start]
 
+    def if_(self, items: list, name: str) -> list:
+        """Slice the init_final list by section name."""
+        return items[self.if_slices[name]]
+
     def if1(self, items: list, name: str):
         s = self.if_slices[name]
         assert s.stop - s.start == 1, f"{name} is not a singleton section"

@@ -17,7 +17,10 @@ x || y big-endian (uint8 [k, 64], zeros at infinity); mock commitments
 (which the transcript never sees) as their evaluations (uint8 [sum of
 lengths, 32] big-endian, with int64 lengths [k]) for the fib3 cases, and as
 the SHA-256 of those bytes (uint8 [k, 32], with the lengths) for the
-others, whose init/final columns hold 2^16 evaluations each.
+others, whose init/final columns hold 2^16 evaluations each.  The HyperKZG
+case at full width keeps the SHA-256 of each point's 64 bytes (uint8
+[k, 32]) and the SHA-256 and length of the proof's arkworks bytes
+(`ark_sha256` uint8 [32], `ark_len` int64).
 """
 from __future__ import annotations
 
@@ -38,6 +41,10 @@ RV32I_FIB_N = 8
 # verified by jolt_tpu.
 RV32I_CASES = ("rv32i_fib8_mock", "rv32i_muldiv_mock", "rv32i_loadstore_mock",
                "rv32i_sha2_1_mock")
+# The same at full width with HyperKZG over the 2^16-point SRS fixture
+# (seed 0x6A6F6C74); its file adds the SHA-256 and length of the proof's
+# arkworks bytes (`ark_sha256`, `ark_len`).
+RV32I_HYPERKZG_CASES = ("rv32i_loadstore_hyperkzg",)
 # The RV32I instructions whose subtables need M = 2^16 (jolt_tpu asserts it
 # in `subtables(C, M)`); the narrow VM carries the other 23.
 WIDE_ONLY = ("lh", "sh", "sw", "virtual_movsign", "mulhu", "virtual_move")
@@ -206,7 +213,8 @@ def loadstore_expected(inputs: bytes = LOADSTORE_INPUT) -> bytes:
 
 def case_program(case: str, asm_cls=_Asm, ops=RV32IM, fib=fibonacci_program,
                  sha2=sha2_chain_program) -> tuple[list, bytes]:
-    """(program, inputs) of `narrow_mock` or one of RV32I_CASES, built with
+    """(program, inputs) of `narrow_mock` or one of RV32I_CASES and
+    RV32I_HYPERKZG_CASES, built with
     the given package's assembler, opcodes and guests (the port's by
     default)."""
     if case == "narrow_mock":
@@ -215,7 +223,7 @@ def case_program(case: str, asm_cls=_Asm, ops=RV32IM, fib=fibonacci_program,
         return fib(RV32I_FIB_N), b""
     if case == "rv32i_muldiv_mock":
         return muldiv_mix_program(asm_cls, ops), b""
-    if case == "rv32i_loadstore_mock":
+    if case in ("rv32i_loadstore_mock", "rv32i_loadstore_hyperkzg"):
         return loadstore_program(asm_cls, ops), LOADSTORE_INPUT
     if case == "rv32i_sha2_1_mock":
         return sha2(1), SHA2_INPUT
@@ -231,12 +239,17 @@ def commitment_arrays(prefix: str, commitments, digest: bool = False
                       ) -> dict:
     """HyperKZG points (objects with .point) or mock evaluations (.evals)
     -> arrays, keyed `<prefix>_points`, `<prefix>_evals`/`_lens`, or with
-    `digest` `<prefix>_digests`/`_lens` (SHA-256 of each commitment's
-    evaluation bytes)."""
+    `digest` `<prefix>_digests` (SHA-256 of each point's 64 bytes) or
+    `<prefix>_digests`/`_lens` (SHA-256 of each commitment's evaluation
+    bytes)."""
     if hasattr(commitments[0], "point"):
         rows = [b"\x00" * 64 if c.point.is_infinity else
                 int(c.point.x).to_bytes(32, "big")
                 + int(c.point.y).to_bytes(32, "big") for c in commitments]
+        if digest:
+            rows = [hashlib.sha256(r).digest() for r in rows]
+            return {f"{prefix}_digests": np.frombuffer(
+                b"".join(rows), dtype=np.uint8).reshape(len(rows), 32)}
         return {f"{prefix}_points": np.frombuffer(
             b"".join(rows), dtype=np.uint8).reshape(len(rows), 64)}
     lens = np.array([len(c.evals) for c in commitments], dtype=np.int64)
@@ -253,15 +266,21 @@ def commitment_arrays(prefix: str, commitments, digest: bool = False
                 -1, 32), f"{prefix}_lens": lens}
 
 
-def proof_arrays(transcript, commitments, digest: bool = False) -> dict:
+def proof_arrays(transcript, commitments, digest: bool = False,
+                 ark: bytes | None = None) -> dict:
     """The transcript and commitments as arrays; with `digest`, the
     transcript as the first 8 bytes of each state (where two runs part)
-    and the whole last state (which binds every event before it)."""
+    and the whole last state (which binds every event before it); with
+    `ark`, the SHA-256 and length of those proof bytes."""
     hist = history_array(transcript.state_history)
     out = {"state_prefixes": hist[:, :8].copy(), "final_state": hist[-1]} \
         if digest else {"state_history": hist}
     out.update(commitment_arrays("rw", commitments["read_write"], digest))
     out.update(commitment_arrays("if", commitments["init_final"], digest))
+    if ark is not None:
+        out["ark_sha256"] = np.frombuffer(hashlib.sha256(ark).digest(),
+                                          dtype=np.uint8)
+        out["ark_len"] = np.array(len(ark), dtype=np.int64)
     return out
 
 

@@ -4,10 +4,12 @@ Reference: jolt-core/src/host/mod.rs builds guests with cargo + a RISC-V
 toolchain; here programs are constructed directly as ELFInstruction lists
 (a mini-assembler).  The trace path mirrors host/mod.rs:178-214: run the
 emulator, expand M-extension rows into their virtual sequences, convert
-rows to JoltTraceSteps.  The port has one tracer, the Python emulator.
+rows to JoltTraceSteps.  The emulator is the port's C++ tracer
+(native/tracer.cpp); the Python one (tracer/emulator.py) is its oracle.
 """
 from __future__ import annotations
 
+from ..native import trace_native
 from ..tracer.emulator import Emulator
 from .bytecode import BytecodeRow
 from .rv_trace import (DEFAULT_MAX_INPUT_SIZE, DEFAULT_MAX_OUTPUT_SIZE,
@@ -91,12 +93,23 @@ def trace_program(program: list[ELFInstruction], vm,
                   inputs: bytes = b"",
                   max_input_size: int = DEFAULT_MAX_INPUT_SIZE,
                   max_output_size: int = DEFAULT_MAX_OUTPUT_SIZE,
+                  native: bool = True,
                   ) -> tuple[list[JoltTraceStep], JoltDevice, list[BytecodeRow]]:
     """Run the emulator and convert rows to prover trace steps
-    (host/mod.rs:178-214).  Returns (steps, program I/O, bytecode rows)."""
+    (host/mod.rs:178-214).  Returns (steps, program I/O, bytecode rows).
+    `native` runs the C++ tracer (a failed build or trace raises);
+    `native=False` the Python emulator."""
     device = JoltDevice.new(max_input_size, max_output_size)
     device.inputs.extend(inputs)
-    raw_rows = Emulator(program, device).run()
+    raw_rows = trace_native(program, device) if native \
+        else Emulator(program, device).run()
+    steps, bytecode_rows = rows_to_steps(program, raw_rows, vm)
+    return steps, device, bytecode_rows
+
+
+def rows_to_steps(program: list[ELFInstruction], raw_rows, vm
+                  ) -> tuple[list[JoltTraceStep], list[BytecodeRow]]:
+    """The emulator's rows -> (prover trace steps, bytecode rows)."""
     # M-extension rows expand into virtual sequences (host/mod.rs:185-195)
     rows = [r for raw in raw_rows for r in expand_m_extension(raw)]
     ni = len(vm.instruction_classes)
@@ -105,7 +118,7 @@ def trace_program(program: list[ELFInstruction], vm,
         BytecodeRow.from_instruction(
             i, vm.name_to_index.get(_lookup_name(i)), ni)
         for i in expand_bytecode(program)]
-    return steps, device, bytecode_rows
+    return steps, bytecode_rows
 
 
 def _lookup_name(instr: ELFInstruction):

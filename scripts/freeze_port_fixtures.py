@@ -23,6 +23,14 @@ jolt_tpu on the CPU and written to `fixtures/port/<case>.npz`:
                        every load and store width, and LUI
     rv32i_sha2_1_mock  sha2_chain_program(1) on rv32i_vm() (5,161 steps,
                        T = 2^13), the mock PCS
+    rv32i_loadstore_hyperkzg  `loadstore_program` on rv32i_vm(), HyperKZG
+                       over the 2^16-point SRS fixture; adds the SHA-256
+                       and length of the proof's arkworks bytes
+    fib3_proof_bytes   the three fib3 proofs' `proof_size_bytes`, and the
+                       HyperKZG one's canonical and arkworks bytes (SHA-256
+                       and length), as fixtures/port/fib3_proof_bytes.json
+                       (jolt_tpu's byte serializers read HyperKZG points and
+                       opening proofs, which the mock PCS has not)
 
 The cases, their programs and the array format are in
 jolt_tpu_torch/vm/fixtures.py, which the port's tests and chip_smoke.py
@@ -33,6 +41,8 @@ an rv32i one longer.
 """
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 import sys
 import time
@@ -48,10 +58,22 @@ from jolt_tpu_torch.vm import fixtures as fx  # noqa: E402
 CASES = ("mock", "hyperkzg", "parity")
 
 
+def ark_bytes(vm, pre, proof, commitments) -> bytes:
+    """jolt_tpu's arkworks `JoltHyperKZGProof` bytes of a HyperKZG proof."""
+    from jolt_tpu.utils.ark_proof import serialize_jolt_hyperkzg_proof
+    il = pre.instruction_lookups
+    return serialize_jolt_hyperkzg_proof(
+        proof, commitments["read_write"], commitments["init_final"],
+        vm.commit_layout(il.num_memories), il.C, il.num_memories,
+        il.num_instructions)
+
+
 def prove_rv32i_case(case: str) -> dict:
-    """jolt_tpu's proof of `narrow_mock` or one of RV32I_CASES, verified by
-    jolt_tpu, as the arrays above (mock commitments as digests)."""
+    """jolt_tpu's proof of `narrow_mock` or one of RV32I_CASES and
+    RV32I_HYPERKZG_CASES, verified by jolt_tpu, as the arrays above (mock
+    commitments as digests)."""
     from jolt_tpu.commitment import MockCommitmentScheme
+    from jolt_tpu.commitment.hyperkzg import HyperKZG
     from jolt_tpu.field import fr_spec
     from jolt_tpu.instructions import RV32I_INSTRUCTIONS
     from jolt_tpu.vm.guests import _Asm, sha2_chain_program
@@ -71,16 +93,20 @@ def prove_rv32i_case(case: str) -> dict:
                                       sha2_chain_program)
     steps, io, rows = trace_program(program, vm, inputs=inputs, native=False,
                                     **io_size)
-    pcs = MockCommitmentScheme(spec)
+    hyperkzg = case in fx.RV32I_HYPERKZG_CASES
+    pcs = HyperKZG.setup(vm.required_srs_len(io, steps, rows)) if hyperkzg \
+        else MockCommitmentScheme(spec)
     pre = vm.preprocess(rows, pcs)
     proof, commitments, transcript, acc = vm.prove(io, steps, pre)
     vm.verify(pre, proof, commitments, debug_transcript=transcript,
               debug_accumulator=acc)
-    return fx.proof_arrays(transcript, commitments, digest=True)
+    ark = ark_bytes(vm, pre, proof, commitments) if hyperkzg else None
+    return fx.proof_arrays(transcript, commitments, digest=True, ark=ark)
 
 
-def prove_case(case: str) -> dict:
-    """jolt_tpu's fib(3) proof of one of CASES, as the arrays above."""
+def fib3_proof(case: str):
+    """jolt_tpu's fib(3) proof of one of CASES, verified by jolt_tpu:
+    (vm, preprocessing, proof, commitments, transcript)."""
     from jolt_tpu.commitment import MockCommitmentScheme
     from jolt_tpu.commitment.hyperkzg import HyperKZG
     from jolt_tpu.field import fr_spec
@@ -107,23 +133,59 @@ def prove_case(case: str) -> dict:
         proof, commitments, transcript, acc = vm.prove(io, steps, pre)
         vm.verify(pre, proof, commitments, debug_transcript=transcript,
                   debug_accumulator=acc)
-        return fx.proof_arrays(transcript, commitments)
+        return vm, pre, proof, commitments, transcript
     finally:
         os.environ.pop("JOLT_REFERENCE_PARITY", None)
         if old is not None:
             os.environ["JOLT_REFERENCE_PARITY"] = old
 
 
+def prove_case(case: str) -> dict:
+    """jolt_tpu's fib(3) proof of one of CASES, as the arrays above."""
+    _, _, _, commitments, transcript = fib3_proof(case)
+    return fx.proof_arrays(transcript, commitments)
+
+
+def fib3_proof_bytes() -> dict:
+    """For each of CASES, jolt_tpu's `proof_size_bytes` of its fib(3)
+    proof; for the HyperKZG one also the SHA-256 (hex) and length of its
+    canonical `serialize_jolt_proof_with_commitments` bytes and of its
+    arkworks bytes."""
+    from jolt_tpu.utils.serialization import (
+        proof_size_bytes, serialize_jolt_proof_with_commitments)
+    out = {}
+    for case in CASES:
+        vm, pre, proof, commitments, _ = fib3_proof(case)
+        row = {"proof_size_bytes": proof_size_bytes(proof)}
+        if case == "hyperkzg":
+            for key, blob in (
+                    ("canonical", serialize_jolt_proof_with_commitments(
+                        proof, commitments)),
+                    ("ark", ark_bytes(vm, pre, proof, commitments))):
+                row[f"{key}_sha256"] = hashlib.sha256(blob).hexdigest()
+                row[f"{key}_len"] = len(blob)
+        out[f"fib3_{case}"] = row
+    return out
+
+
 def main(argv=None) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    names = [f"fib3_{c}" for c in CASES] + ["narrow_mock", *fx.RV32I_CASES]
+    names = [f"fib3_{c}" for c in CASES] + ["narrow_mock", *fx.RV32I_CASES,
+                                            *fx.RV32I_HYPERKZG_CASES,
+                                            "fib3_proof_bytes"]
     chosen = list(argv if argv is not None else sys.argv[1:]) or names
     for name in chosen:
         if name not in names:
             raise SystemExit(f"unknown case {name}; cases: {names}")
         t0 = time.perf_counter()
+        if name == "fib3_proof_bytes":
+            path = OUT_DIR / f"{name}.json"
+            path.write_text(json.dumps(fib3_proof_bytes(), indent=1) + "\n")
+            print(f"{path.relative_to(ROOT)}: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            continue
         arrays = prove_case(name[len("fib3_"):]) if name.startswith("fib3_") \
             else prove_rv32i_case(name)
         path = OUT_DIR / f"{name}.npz"

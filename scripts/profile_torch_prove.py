@@ -4,12 +4,16 @@
     python3 scripts/profile_torch_prove.py [--nv 20]           # Surge XOR
     python3 scripts/profile_torch_prove.py --workload fib      # Jolt VM
     python3 scripts/profile_torch_prove.py --workload sha2     # full VM
+    python3 scripts/profile_torch_prove.py --workload sha3     # the SDK
 
 on a CUDA card.  `surge` sets up as `python -m jolt_tpu_torch.cli
 surge-bench` does (C = 4, M = 2^16, operands from default_rng(0)); `fib`
 as chip_smoke.py's phase 6 (fibonacci(13000) on the mini VM, T = 2^16,
 C = 4, M = 2^16, HyperKZG); `sha2` as its phase 8 (sha2-chain(13) on
-rv32i_vm(), the input 0x05 x 32, T = 2^16, C = 4, M = 2^16, HyperKZG).
+rv32i_vm(), the input 0x05 x 32, T = 2^16, C = 4, M = 2^16, HyperKZG);
+`sha3` as its phase 10: sha3-chain(2) written to ELF bytes and proved
+through sdk.build_provable (HyperKZG), so each prove also traces the
+guest with the native tracer (44,479 steps, T = 2^16).
 One warm-up prove and one unprofiled prove, then:
 
   1. one prove under torch.profiler (CPU and CUDA activities): wall time,
@@ -19,7 +23,8 @@ One warm-up prove and one unprofiled prove, then:
   2. one prove under cProfile: host time by function (cumulative), which
      names the protocol phases (witness, commit, sumchecks, memory
      checking, openings) and the host work inside them (transcript, limb
-     carries).
+     carries), and the Keccak-256 hashes of the transcript: their count
+     and cumulative seconds.
 
 With --unprofiled-only it stops after the unprofiled prove: the prove
 seconds alone, for comparing checkouts in turns in one call (copy this
@@ -111,11 +116,12 @@ def replay_k2(prove, card: str, tag: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("surge", "fib", "sha2"),
+    ap.add_argument("--workload", choices=("surge", "fib", "sha2", "sha3"),
                     default="surge")
     ap.add_argument("--nv", type=int, default=20, help="Surge: log2 lookups")
     ap.add_argument("--fib-n", type=int, default=13000)
     ap.add_argument("--sha2-iters", type=int, default=13)
+    ap.add_argument("--sha3-iters", type=int, default=2)
     ap.add_argument("--unprofiled-only", action="store_true",
                     help="stop after the unprofiled prove (above)")
     ap.add_argument("--replay-k2", action="store_true",
@@ -127,10 +133,11 @@ def main() -> None:
         sys.exit("profile_torch_prove: no CUDA card")
     sys.path.insert(0, str(ROOT))
     from jolt_tpu_torch import _native as nat
-    from jolt_tpu_torch import cli
+    from jolt_tpu_torch import cli, sdk
     from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
     from jolt_tpu_torch.lasso import surge_prove
-    from jolt_tpu_torch.vm.guests import sha2_chain_program
+    from jolt_tpu_torch.tracer.elf_write import elf_image
+    from jolt_tpu_torch.vm.guests import sha2_chain_program, sha3_chain_program
     from jolt_tpu_torch.vm.host import fibonacci_program, trace_program
     from jolt_tpu_torch.vm.rv32i_vm import rv32i_vm
 
@@ -144,6 +151,11 @@ def main() -> None:
         pre, pcs = cli.surge_setup(args.nv)
         x, y = cli.surge_inputs(np.random.default_rng(0), args.nv)
         run = lambda: surge_prove(pre, pcs, x, y)  # noqa: E731
+    elif args.workload == "sha3":
+        sdk_prove, _ = sdk.build_provable(
+            elf_image(sha3_chain_program(args.sha3_iters)), pcs="hyperkzg")
+        tag = f"sha3-chain({args.sha3_iters}) via the SDK"
+        run = lambda: sdk_prove(cli.SHA2_INPUT)  # noqa: E731
     else:
         if args.workload == "fib":
             vm = cli.fib_vm(1 << 16)
@@ -212,6 +224,11 @@ def main() -> None:
     print(f"cProfile prove {tag}: wall_s={wall_s:.3f} (with the "
           f"profiler's own cost)")
     print(out.getvalue())
+    for (path, _, fn), (_, calls, _, cum, _) in stats.stats.items():
+        if fn == "keccak256" and "jolt_tpu_torch" in path:
+            print(f"keccak256 ({Path(path).relative_to(ROOT)}): {calls} "
+                  f"calls, {cum:.3f} s cumulative of the {wall_s:.3f} s "
+                  f"prove [{card}]")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
-"""The port stands alone: no JAX, no jolt_tpu, and no slide to the CPU.
+"""The port stands alone: no JAX, no jolt_tpu, no pyelftools, and no slide
+to the CPU.
 
-- importing jolt_tpu_torch (every module of it) loads neither jax nor any
-  jolt_tpu module;
+- importing jolt_tpu_torch (every module of it: the SDK, the native
+  runtime, the ELF reader and the serializers among them) loads neither
+  jax nor any jolt_tpu module nor elftools;
 - no source of the port, and not chip_smoke.py, imports them;
 - an entry point called with no CUDA card and no device="cpu" raises;
 - a kernel wrapper handed tensors that are not on the CPU launches its
@@ -16,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from jolt_tpu_torch import cli
+from jolt_tpu_torch import cli, sdk
 from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
 from jolt_tpu_torch.commitment.mock import MockCommitmentScheme
 from jolt_tpu_torch.curve import kernels as ck
@@ -34,7 +36,12 @@ import jolt_tpu_torch, jolt_tpu_torch.cli
 for m in pkgutil.walk_packages(jolt_tpu_torch.__path__, "jolt_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "jolt_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "jolt_tpu", "elftools"))
+need = {"jolt_tpu_torch.sdk", "jolt_tpu_torch.native",
+        "jolt_tpu_torch.tracer.elf", "jolt_tpu_torch.tracer.elf_write",
+        "jolt_tpu_torch.vm.analyze", "jolt_tpu_torch.utils.serialization",
+        "jolt_tpu_torch.utils.ark_proof", "jolt_tpu_torch.utils.ark_serialize"}
+bad += sorted(f"not imported: {m}" for m in need - set(sys.modules))
 print(len([m for m in sys.modules if m.startswith("jolt_tpu_torch")]))
 sys.exit("loaded: " + ", ".join(bad) if bad else 0)
 """
@@ -48,8 +55,8 @@ def test_import_loads_no_jax_and_no_jolt_tpu():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|jaxlib|jolt_tpu)\b(?!_torch)"
-    r"|from\s+(jax|jaxlib|jolt_tpu)\b(?!_torch))", re.M)
+    r"^\s*(import\s+(jax|jaxlib|jolt_tpu|elftools)\b(?!_torch)"
+    r"|from\s+(jax|jaxlib|jolt_tpu|elftools)\b(?!_torch))", re.M)
 
 
 def test_sources_import_no_jax_and_no_jolt_tpu():
@@ -62,7 +69,8 @@ def test_sources_import_no_jax_and_no_jolt_tpu():
 
 def test_forbidden_pattern_catches_imports():
     for line in ("import jax", "from jax import numpy", "import jolt_tpu.cli",
-                 "from jolt_tpu.field import fr_spec", "  import jolt_tpu"):
+                 "from jolt_tpu.field import fr_spec", "  import jolt_tpu",
+                 "from elftools.elf.elffile import ELFFile"):
         assert _FORBIDDEN.search(line), line
     for line in ("import jolt_tpu_torch", "from jolt_tpu_torch.field import x",
                  "# the jax package", "x = 'from jax'"):
@@ -81,6 +89,11 @@ _ENTRY_POINTS = {
     "cli.main prove-fib": lambda: cli.main(["prove-fib", "--n", "1"]),
     "cli.prove_sha2_chain": lambda: cli.prove_sha2_chain(1),
     "cli.main prove-sha2-chain": lambda: cli.main(["prove-sha2-chain"]),
+    "cli.prove_guest": lambda: cli.prove_guest("collatz", 3),
+    "cli.main prove-guest": lambda: cli.main(["prove-guest", "--guest",
+                                              "collatz", "--n", "3"]),
+    "sdk.build_provable": lambda: sdk.build_provable(
+        cli.GUESTS["collatz"][0](3), pcs="mock"),
 }
 
 

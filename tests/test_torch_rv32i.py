@@ -323,7 +323,29 @@ def test_rv32i_mock_proof_matches_jolt_tpu(case):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("case", ("narrow_mock",) + fx.RV32I_CASES)
+@pytest.mark.parametrize("case", fx.RV32I_HYPERKZG_CASES)
+def test_rv32i_hyperkzg_proof_matches_jolt_tpu(case):
+    """The port proves the load/store program on rv32i_vm() with HyperKZG
+    over the 2^16-point SRS fixture on the CPU: its transcript, commitment
+    digests and arkworks bytes' SHA-256 against jolt_tpu's."""
+    from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
+    from jolt_tpu_torch.utils.ark_proof import jolt_proof_bytes
+    vm = rv32i_vm()
+    program, inputs = fx.case_program(case)
+    steps, io, rows = trace_program(program, vm, inputs=inputs)
+    pcs = HyperKZG.setup(vm.required_srs_len(io, steps, rows), device="cpu")
+    pre = vm.preprocess(rows, pcs)
+    proof, commitments, transcript, _ = vm.prove(io, steps, pre)
+    vm.verify(pre, proof, commitments)
+    _assert_equal_arrays(
+        fx.proof_arrays(transcript, commitments, digest=True,
+                        ark=jolt_proof_bytes(vm, pre, proof, commitments)),
+        _frozen(case))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", ("narrow_mock",) + fx.RV32I_CASES
+                         + fx.RV32I_HYPERKZG_CASES)
 def test_frozen_rv32i_fixtures_match_a_live_jolt_tpu_prove(case):
     _assert_equal_arrays(_freeze_script().prove_rv32i_case(case),
                          _frozen(case))

@@ -5,8 +5,9 @@ chunks into M = 16-entry subtables, 13 operations (padded to 16).  The
 port proves with HyperKZG over the committed SRS fixture; jolt_tpu with
 its mock PCS, since Surge appends no commitment to the transcript.  The
 transcripts must be equal event for event, the port's commitments must
-equal jolt_tpu's host MSM, and each package's verifier must accept the
-port's proof.  The tolerance is zero.
+equal jolt_tpu's host MSM, each package's verifier must accept the port's
+proof, and the port's arkworks proof bytes must equal jolt_tpu's
+serialize_surge_proof of the same proof.  The tolerance is zero.
 """
 import dataclasses
 
@@ -29,6 +30,8 @@ from jolt_tpu.poly.unipoly import CompressedUniPoly as JCompressedUniPoly
 from jolt_tpu.subprotocols import grand_product as jgp
 from jolt_tpu.subprotocols.sumcheck import \
     SumcheckInstanceProof as JSumcheckInstanceProof
+from jolt_tpu.utils.ark_proof import \
+    serialize_surge_proof as j_serialize_surge_proof
 from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
 from jolt_tpu_torch.convert import limbs_to_numpy
 from jolt_tpu_torch.field.host import FElt
@@ -36,6 +39,7 @@ from jolt_tpu_torch.field.spec import fr_spec
 from jolt_tpu_torch.instructions import XorInstruction
 from jolt_tpu_torch.lasso import SurgePreprocessing, surge_prove, surge_verify
 from jolt_tpu_torch.subprotocols.sumcheck import VerificationError
+from jolt_tpu_torch.utils.ark_proof import serialize_surge_proof
 
 JFR, JFQ = jfr_spec(), jfq_spec()
 C, M, N_OPS = 2, 16, 13
@@ -147,3 +151,18 @@ def test_port_verifier_accepts_and_rejects_tampered(proofs):
         ps, claimed_evaluation=ps.claimed_evaluation + FElt(1, fr_spec())))
     with pytest.raises(VerificationError):
         surge_verify(proofs["pre"], bad)
+
+
+def test_surge_proof_bytes_match_jolt_tpu(proofs):
+    """The arkworks SurgeProof bytes (the bench's proof size) of the port's
+    proof, against jolt_tpu's serializer on the same proof rebuilt as
+    jolt_tpu dataclasses (whose transcript equals jolt_tpu's own proof's)."""
+    proof, pre = proofs["proof"], proofs["pre"]
+    data = serialize_surge_proof(proof, pre.num_memories)
+    assert data == j_serialize_surge_proof(to_jax_surge_proof(proof),
+                                           proofs["jpre"].num_memories)
+    # 4C compressed points and their four Vec lengths come first
+    assert data[:8] == C.to_bytes(8, "little")
+    assert len(data) > 32 * 4 * C
+    with pytest.raises(ValueError):
+        serialize_surge_proof(proof, pre.num_memories + 1)

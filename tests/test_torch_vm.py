@@ -7,10 +7,22 @@ JOLT_REFERENCE_PARITY=1.  Each transcript's state_history and each
 commitment must equal jolt_tpu's, frozen in fixtures/port/fib3_<case>.npz
 by scripts/freeze_port_fixtures.py (a live jolt_tpu prove takes minutes of
 XLA compiles; the `slow` test recomputes them live).  The port's verifier
-must accept each proof and reject it with one opening bumped by one.  The
-tolerance is zero.
+must accept each proof and reject it with one opening bumped by one.
+
+The proof bytes: each proof's `proof_size_bytes`, and the HyperKZG proof's
+canonical bytes (SHA-256 and length), must equal jolt_tpu's, frozen in
+fixtures/port/fib3_proof_bytes.json; its arkworks bytes must equal
+fixtures/ark/fib_mini.bin (jolt_tpu's tests/test_ark_proof.py freezes
+them from the same configuration), and both packages' structure readers
+must agree on them; jolt_tpu's reader must read the port's canonical
+bytes and write them back unchanged, and the port's verifier must accept
+the proof read back from them.  The mock proofs hold no curve points, so
+both byte serializers refuse them (jolt_tpu's as well).  The tolerance is
+zero.
 """
+import hashlib
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -23,6 +35,9 @@ from jolt_tpu_torch.commitment.mock import MockCommitmentScheme
 from jolt_tpu_torch.field.host import FElt
 from jolt_tpu_torch.field.spec import fr_spec
 from jolt_tpu_torch.subprotocols.sumcheck import VerificationError
+from jolt_tpu_torch.utils import serialization as ser
+from jolt_tpu_torch.utils.ark_proof import (deserialize_jolt_proof_structure,
+                                            jolt_proof_bytes)
 from jolt_tpu_torch.vm import fixtures as fx
 from jolt_tpu_torch.vm.host import fibonacci_program, trace_program
 
@@ -100,3 +115,100 @@ def test_frozen_fixtures_match_a_live_jolt_tpu_prove(case):
         assert sorted(z.files) == sorted(want)
         for k in z.files:
             assert (z[k] == want[k]).all(), k
+
+
+# ---------------------------------------------------------------------------
+# proof bytes
+# ---------------------------------------------------------------------------
+
+def _frozen_bytes(case: str) -> dict:
+    return json.loads((ROOT / "fixtures" / "port" / "fib3_proof_bytes.json")
+                      .read_text())[f"fib3_{case}"]
+
+
+def _canonical(fib3) -> bytes:
+    return ser.serialize_jolt_proof_with_commitments(fib3["proof"],
+                                                     fib3["commitments"])
+
+
+def _bump_output_opening(proof):
+    ops = proof.read_write_memory.output_proof
+    ops.opening = ops.opening + FElt(1, fr_spec())
+
+
+def test_proof_size_bytes_matches_jolt_tpu(fib3):
+    assert ser.proof_size_bytes(fib3["proof"]) == \
+        _frozen_bytes(fib3["case"])["proof_size_bytes"]
+
+
+def test_canonical_bytes_match_jolt_tpu(fib3):
+    if fib3["case"] != "hyperkzg":
+        with pytest.raises(ValueError, match="HyperKZG"):
+            _canonical(fib3)
+        return
+    from jolt_tpu.utils import serialization as jser
+    data = _canonical(fib3)
+    want = _frozen_bytes("hyperkzg")
+    assert (hashlib.sha256(data).hexdigest(), len(data)) == \
+        (want["canonical_sha256"], want["canonical_len"])
+    jproof, jcom = jser.deserialize_jolt_proof_with_commitments(data)
+    assert jser.serialize_jolt_proof_with_commitments(jproof, jcom) == data
+
+
+def _plain_structure(x):
+    """A structure reader's output with points as (x, y, infinity)."""
+    if isinstance(x, dict):
+        return {k: _plain_structure(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain_structure(v) for v in x]
+    if hasattr(x, "is_infinity"):
+        return (x.x, x.y, x.is_infinity)
+    return x
+
+
+def test_ark_bytes_match_jolt_tpus_fixture(fib3):
+    vm, pre, proof, com = (fib3[k] for k in ("vm", "pre", "proof",
+                                             "commitments"))
+    if fib3["case"] != "hyperkzg":
+        with pytest.raises(ValueError, match="HyperKZG"):
+            jolt_proof_bytes(vm, pre, proof, com)
+        return
+    from jolt_tpu.utils.ark_proof import \
+        deserialize_jolt_proof_structure as j_structure
+    data = jolt_proof_bytes(vm, pre, proof, com)
+    assert data == (ROOT / "fixtures" / "ark" / "fib_mini.bin").read_bytes()
+    want = _frozen_bytes("hyperkzg")
+    assert (hashlib.sha256(data).hexdigest(), len(data)) == \
+        (want["ark_sha256"], want["ark_len"])
+    il = pre.instruction_lookups
+    dims = (il.C, il.num_memories, il.num_instructions)
+    got = deserialize_jolt_proof_structure(data, *dims)
+    assert _plain_structure(got) == _plain_structure(j_structure(data, *dims))
+    assert got["trace_length"] == proof.trace_length
+    assert got["outputs"] == bytes(proof.program_io.outputs)
+    hk = proof.opening_proof.joint_opening_proof
+    assert got["reduced"]["hyperkzg"][2] == [[x.v for x in row]
+                                             for row in hk.v]
+
+
+def test_proof_read_back_verifies_and_rejects_a_bumped_opening(fib3):
+    """The port's reader on its canonical bytes: the proof it returns
+    writes the same bytes, the verifier accepts it, and rejects it with
+    one opening bumped by one."""
+    if fib3["case"] != "hyperkzg":
+        with pytest.raises(ValueError, match="HyperKZG"):
+            _canonical(fib3)
+        return
+    vm, pre = fib3["vm"], fib3["pre"]
+    data = _canonical(fib3)
+    proof, com = ser.deserialize_jolt_proof_with_commitments(data)
+    assert ser.serialize_jolt_proof_with_commitments(proof, com) == data
+    assert ser.proof_size_bytes(proof) == ser.proof_size_bytes(fib3["proof"])
+    vm.verify(pre, proof, com)
+    _bump_output_opening(proof)
+    with pytest.raises(VerificationError):
+        vm.verify(pre, proof, com)
+    with pytest.raises(ValueError):
+        ser.deserialize_jolt_proof_with_commitments(data[:-1])
+    with pytest.raises(ValueError, match="trailing"):
+        ser.deserialize_jolt_proof_with_commitments(data + b"\x00")
