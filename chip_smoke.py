@@ -29,13 +29,16 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      CPU (plain versions) must give the same transcript and commitments,
      and two commitments must equal a host MSM;
   6. the Jolt VM's main path (launch counts set to 0 before it): the
-     fibonacci(13000) program on the mini VM (ADD, BNE; C = 4, M = 2^16)
-     traced to 65,005 steps, padded to T = 2^16, HyperKZG setup from the
-     2^16-point SRS fixture, a warm-up prove (K1-K5 must have launched)
-     during which the inputs of each kernel's largest call are kept and
-     then replayed against the plain version as in phase 2, the
-     verifier's accept, a proof with one opening bumped by one rejected,
-     then a timed prove and a timed verify;
+     fibonacci(3275) program on the mini VM (ADD, BNE; C = 4, M = 2^16)
+     traced to 16,380 steps, padded to T = 2^14 (cut from 2^16 to keep the
+     script's time; the full VM's phases 8 and 10 keep T = 2^16), HyperKZG
+     setup from the 2^16-point SRS fixture, one timed prove (K1-K5 must
+     have launched) during which the inputs of each kernel's largest call
+     are kept and then replayed against the plain version as in phase 2,
+     the verifier's accept, a proof with one opening bumped by one rejected,
+     and a timed verify (each VM phase proves once: a second, timed prove
+     went to keep the script's time; the peak memory printed includes the
+     kept copies, and says how much of it they are);
   7. reference on a small input: fibonacci(3) on the mini VM at M = 2^8
      with HyperKZG over 2^8 points, on the card and on the CPU: both
      transcripts must equal jolt_tpu's, frozen in fixtures/port/
@@ -43,10 +46,10 @@ Phases (any failure exits non-zero, no phase catches and carries on):
   8. the full RV32I VM's main path (launch counts set to 0 before it):
      sha2-chain(13) on rv32i_vm() (29 instructions, 26 subtables, C = 4,
      M = 2^16) with the input 0x05 x 32, traced to 62,413 steps, padded to
-     T = 2^16, HyperKZG from the SRS fixture, as phase 6: warm-up prove
+     T = 2^16, HyperKZG from the SRS fixture, as phase 6: one timed prove
      (K1-K5 must have launched; the largest call of each kernel, and of K2
      and K3 at each batch size, replayed against the plain version),
-     accept, tamper rejected, timed prove and verify; the guest's 32
+     accept, tamper rejected, timed verify; the guest's 32
      output bytes must equal hashlib's sha256 iterated 13 times;
   9. reference at full width: rv32i_vm() (M = 2^16) with the mock PCS on
      the card proves each frozen case of jolt_tpu_torch/vm/fixtures.py
@@ -59,24 +62,42 @@ Phases (any failure exits non-zero, no phase catches and carries on):
  10. the user's path (launch counts set to 0 before it): sha3_chain_program
      (2) written to an ELF file by tracer/elf_write.py, its bytes given to
      sdk.build_provable (HyperKZG, on the card), whose prove decodes them,
-     traces them with the native tracer to 44,479 steps (T = 2^16) and
-     proves (the warm-up; K1-K5 must launch, and their largest calls are
+     traces them with the native tracer to 44,479 steps (T = 2^16), sets
+     up and proves, timed (K1-K5 must launch, and their largest calls are
      replayed as in phase 8); the output must equal hashlib's sha3_256
      iterated twice; the proof's arkworks bytes (proof_size_bytes) are
      re-read by the structure reader; its canonical bytes are read back,
      and the proof read back verifies, and is rejected with one opening
-     bumped by one; then a timed prove and verify through the SDK.
+     bumped by one; then a timed verify through the SDK;
+ 11. the commitment schemes at 2^20 (launch counts set to 0 before it):
+     the pcs-bench polynomial (2^20 values below 2^63 from default_rng(0))
+     committed cold and warm, opened at a point from random.Random(11),
+     verified, and a tampered opening refused, by HyperKZG (phase 3's
+     SRS), Zeromorph (2^20 + 1 SRS points generated on the card from seed
+     0x5A4D, the first 2^10 checked against host g * tau^i) and Hyrax
+     (1,024 generators checked against host g * k; its commits launch K6
+     and K7); the largest call of each kernel, for HyperKZG and Zeromorph
+     together and for Hyrax, is recorded and replayed against its plain
+     version; a BatchedHyraxOpeningProof of four 2^16 polynomials
+     verified and refused with an opening bumped; K1, K5, K6 and K7 must
+     have launched; then the reference: each scheme's 2^10 commitment on
+     the card and the CPU equal, HyperKZG's and Hyrax's row 0 equal to a
+     host MSM, and jolt_tpu's frozen Zeromorph and Hyrax openings
+     (fixtures/port/zeromorph_l6.npz, hyrax_l7.npz: transcripts,
+     commitments, proofs) reproduced on the card.
 Phase 1 also builds the native tracer and Keccak (g++) from their sources
 and prints the compiler and the libraries' paths.  Then a {"kernels":
 [...]} JSON line, the card line again, and last {"ok": true, "device":
 {...}}.  Imports nothing of JAX or jolt_tpu.
-K7 (jac_double) lies on neither main path (see csrc/point.cu): phase 2
-holds it against its plain version, and the launch check exempts it.
+K7 (jac_double) lies on no VM or Surge path (see csrc/point.cu): phase 2
+holds it against its plain version, and those paths' launch checks exempt
+it; phase 11's Hyrax commit launches it.
 """
 from __future__ import annotations
 
 import json
 import math
+import random
 import re
 import subprocess
 import sys
@@ -95,14 +116,20 @@ MULS_PER_PRODUCT = 264             # 32-bit multiplies one 256-bit Montgomery
 #   products a_i*b_j and 64 m_i*p_j, each a low and a high half, and 8 low
 #   halves m_i = t_0 * inv
 NV = 20
-FIB_N, FIB_STEPS, FIB_T, FIB_M = 13000, 65005, 1 << 16, 1 << 16
+FIB_N, FIB_STEPS, FIB_T, FIB_M = 3275, 16380, 1 << 14, 1 << 16
 SHA2_ITERS, SHA2_STEPS, SHA2_T = 13, 62413, 1 << 16
 SHA3_ITERS, SHA3_STEPS, SHA3_T = 2, 44479, 1 << 16
 GP_KERNELS = ("gp_pair_evals", "gp_pair_bind")
 REGS_PER_SM, SMEM_PER_SM, MAX_WARPS_PER_SM = 65536, 228 * 1024, 64
-OFF_PATH = {"jac_double": "no prove path of either package launches "
-            "jac_double_pallas (K7); phase 2 holds it against its plain "
-            "version"}
+OFF_PATH = {"jac_double": "no VM or Surge prove path of either package "
+            "launches jac_double_pallas (K7); phase 11's Hyrax commit does "
+            "(the windowed MSM's Horner doublings)"}
+PCS_LOGN = 20
+VM_KERNELS = ("mont_mul", "mont_mul_bl", "gp_pair_evals", "gp_pair_bind",
+              "proj_cadd")
+PCS_KERNELS = ("mont_mul", "proj_cadd", "jac_add", "jac_double")
+HYRAX_KERNELS = ("mont_mul", "jac_add", "jac_double")
+KZG_KERNELS = ("mont_mul", "proj_cadd")
 
 
 def work(name: str, args) -> tuple[int, int]:
@@ -165,13 +192,15 @@ def resident_warps(regs: int, smem: int, threads: int) -> int:
     return blocks * wpb
 
 
-def event_ms(fn, reps: int) -> float:
+def event_ms(fn, reps: int, warm: bool = False) -> float:
     """Device ms per call of `fn`, by CUDA events around `reps` calls.
     One call is left running when the start event is recorded, so the
     card does not sit idle while the host enqueues the first timed call
-    (a bias of the host's enqueue time / reps otherwise)."""
+    (a bias of the host's enqueue time / reps otherwise).  A first call
+    warms up, unless `warm` says that fn has just run."""
     import torch
-    fn()
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -184,9 +213,23 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+_HOST_POOL = None                  # phase 11's host checks (see main)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    if _HOST_POOL is not None:
+        _HOST_POOL.shutdown(cancel_futures=True)
     sys.exit(1)
+
+
+def host_g_times(ks: list[int]) -> list:
+    """g * k on the host, by double-and-add, for each k (a worker process
+    of phase 11's checks of the card's fixed-base points)."""
+    sys.path.insert(0, str(ROOT))
+    from jolt_tpu_torch.curve.bn254 import G1Affine
+    g = G1Affine.generator().to_jacobian()
+    return [g.mul(k).to_affine() for k in ks]
 
 
 def card_line() -> str:
@@ -258,8 +301,18 @@ def main() -> None:
     from jolt_tpu_torch.instructions import XorInstruction
     from jolt_tpu_torch.lasso import (SurgePreprocessing, generate_witness,
                                       surge_prove, surge_verify)
+    from jolt_tpu_torch.commitment import fixtures as pfx
+    from jolt_tpu_torch.commitment.base import BatchType
     from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
+    from jolt_tpu_torch.commitment.hyrax import (GENERATORS_LABEL,
+                                                 HyraxOpeningProof,
+                                                 HyraxScheme,
+                                                 matrix_dimensions)
     from jolt_tpu_torch.commitment.mock import MockCommitmentScheme
+    from jolt_tpu_torch.commitment.zeromorph import ZEROMORPH_SEED, Zeromorph
+    from jolt_tpu_torch.curve.bn254 import G1Affine, g1_msm_host
+    from jolt_tpu_torch.poly import mle
+    from jolt_tpu_torch.transcript import Transcript
     from jolt_tpu_torch.subprotocols.sumcheck import VerificationError
     from jolt_tpu_torch.tracer.elf_write import write_elf
     from jolt_tpu_torch.utils.ark_proof import (
@@ -277,6 +330,13 @@ def main() -> None:
     FR, FQ = fr_spec(), fq_spec()
     card = card_line()
     print(card, flush=True)
+    walls = {}                  # wall seconds of each phase
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        walls[name] = round(now - clock[0], 1)
+        clock[0] = now
 
     # -- phase 1: build --------------------------------------------------
     t0 = time.perf_counter()
@@ -318,6 +378,26 @@ def main() -> None:
     print(f"phase 1: max SM clock {clock_hz / 1e6:.0f} MHz; INT32 multiply "
           f"rate {imad_rate:.4g}/s; {MULS_PER_PRODUCT} 32-bit multiplies per "
           f"Montgomery product", flush=True)
+
+    # phase 11's host recomputations of the card's fixed-base points (the
+    # Zeromorph SRS's first 2^10 points g * tau^i and Hyrax's generators
+    # g * k), 2,048 host scalar multiplications, run in worker processes
+    # beside phases 2-10
+    global _HOST_POOL
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    _HOST_POOL = ProcessPoolExecutor(
+        4, mp_context=multiprocessing.get_context("spawn"))
+    tau11 = random.Random(ZEROMORPH_SEED).randrange(1, FR.p)
+    rng_g = random.Random(GENERATORS_LABEL)
+    n_gens = matrix_dimensions(PCS_LOGN, 1)[1]
+    host_checks = {
+        name: [_HOST_POOL.submit(host_g_times, ks[lo:lo + 128])
+               for lo in range(0, len(ks), 128)]
+        for name, ks in (
+            ("srs", [pow(tau11, i, FR.p) for i in range(1 << 10)]),
+            ("gens", [rng_g.randrange(1, FR.p) for _ in range(n_gens)]))}
+    phase_done("phase 1")
 
     # -- phase 2: each kernel against its plain version ------------------
     gen = torch.Generator(device=dev)
@@ -375,7 +455,7 @@ def main() -> None:
                  f"abs err {err})")
         del got, want
         kernel_ms = event_ms(lambda: wrapper(*args), 10)
-        plain_ms = event_ms(lambda: plain(*args), 1)
+        plain_ms = event_ms(lambda: plain(*args), 1, warm=True)
         nbytes, products = work(name, args)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         muls = products * MULS_PER_PRODUCT
@@ -500,6 +580,8 @@ def main() -> None:
     del pd, pt
     torch.cuda.empty_cache()
 
+    phase_done("phase 2")
+
     # -- phase 3: the main path begins: SRS setup -----------------------
     nat.reset_launch_counts()
     t0 = time.perf_counter()
@@ -514,6 +596,8 @@ def main() -> None:
     print(f"phase 3: HyperKZG setup with a 2^{NV}-point SRS generated on the "
           f"card (+ XOR subtables): {setup_s:.3f} s; first 2^17 points equal "
           f"srs_131072_6a6f6c74.npz (X, Y, Z) [{card}]", flush=True)
+
+    phase_done("phase 3")
 
     # -- phase 4: Surge XOR, nv = 20 --------------------------------------
     x, y = cli.surge_inputs(np.random.default_rng(0), NV)
@@ -560,6 +644,8 @@ def main() -> None:
           f"{len(serialize_surge_proof(proof, pre.num_memories))} "
           "(arkworks SurgeProof bytes)", flush=True)
 
+    phase_done("phase 4")
+
     # -- phase 5: reference on a small input ------------------------------
     xs, ys = cli.surge_inputs(np.random.default_rng(1), 10)
     runs = {}
@@ -586,8 +672,10 @@ def main() -> None:
     print("phase 5: Surge nv=10 card == CPU (transcript, 16 commitments); "
           "2 commitments == host MSM", flush=True)
 
+    phase_done("phase 5")
+
     # -- phases 6, 8 and 10: the Jolt VM's main paths ---------------------
-    # Through setup and the warm-up prove, each kernel's wrapper is wrapped
+    # Through setup and the prove, each kernel's wrapper is wrapped
     # where the prover's modules look it up (field/kernels.py for K1-K4,
     # curve/device.py for K5-K7), keeping a copy of the inputs of its
     # largest call on the card (with `by_batch`, K2's and K3's largest at
@@ -634,12 +722,13 @@ def main() -> None:
         for name, mod in sites.items():
             setattr(mod, name, KERNEL[name][0])
 
-    def check_and_replay(phase, label, counts, largest):
-        """K1-K5 must have launched, every launch through the recording
-        wrappers; then each recorded call is replayed against the plain
-        version (the largest of each kernel is its row for this path)."""
-        missing = [k for k in ("mont_mul", "mont_mul_bl", "gp_pair_evals",
-                               "gp_pair_bind", "proj_cadd") if counts[k] <= 0]
+    def check_and_replay(phase, label, counts, largest,
+                         required=VM_KERNELS):
+        """The `required` kernels (K1-K5 for a VM path) must have launched,
+        every launch through the recording wrappers; then each recorded
+        call is replayed against the plain version (the largest of each
+        kernel is its row for this path)."""
+        missing = [k for k in required if counts[k] <= 0]
         if missing:
             fail(f"kernels of the {label} path never launched: {missing}")
         unseen = [k for k, v in counts.items()
@@ -660,12 +749,17 @@ def main() -> None:
             del args
         torch.cuda.empty_cache()
 
+    def held_gb(largest):
+        """Device memory of the recorded copies, in GB."""
+        return sum(t.numel() * t.element_size() for _, args in
+                   largest.values() for t in tensors(args)) / 1e9
+
     def vm_path(phase, label, vm, program, want_steps, want_T,
                 by_batch=False, **trace_args):
-        """Trace, set up, warm-up prove (recorded and replayed), accept,
-        tamper, timed prove and verify; returns the launch counts of the
-        main path (setup + warm-up prove) and of the timed prove, and the
-        program's I/O."""
+        """Trace, set up, one prove (recorded, timed, then replayed),
+        accept, tamper, timed verify; returns the launch counts of the
+        main path (setup + the prove) and of the prove, and the program's
+        I/O."""
         t0 = time.perf_counter()
         steps, io, rows = trace_program(program, vm, **trace_args)
         trace_s = time.perf_counter() - t0
@@ -684,16 +778,19 @@ def main() -> None:
         pre_v = vm.preprocess(rows, pcs_v)
         torch.cuda.synchronize()
         setup_v = time.perf_counter() - t0
+        setup_counts = nat.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         proof, com, tr, acc = vm.prove(io, steps, pre_v)
         torch.cuda.synchronize()
-        warm_v = time.perf_counter() - t0
+        prove_v = time.perf_counter() - t0
+        peak, held = torch.cuda.max_memory_allocated() / 1e9, held_gb(largest)
         counts = nat.launch_counts()
         stop_recording()
+        prove_counts = {k: v - setup_counts[k] for k, v in counts.items()}
         print(f"{phase}: HyperKZG setup ({srs_len} points) + preprocessing "
-              f"{setup_v:.3f} s; warm-up prove {warm_v:.3f} s; main-path "
-              f"launches (setup + this prove) {json.dumps(counts)}",
-              flush=True)
+              f"{setup_v:.3f} s; main-path launches (setup + the prove) "
+              f"{json.dumps(counts)}", flush=True)
         check_and_replay(phase, label, counts, largest)
         t0 = time.perf_counter()
         vm.verify(pre_v, proof, com, debug_transcript=tr,
@@ -711,21 +808,13 @@ def main() -> None:
         else:
             fail(f"{label}: a proof with an opening bumped by one verified")
         ops.lookup_outputs_opening = good
-        del proof, com, tr, acc
-        nat.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        proof, com, tr, acc = vm.prove(io, steps, pre_v)
-        torch.cuda.synchronize()
-        prove_v = time.perf_counter() - t0
-        prove_counts = nat.launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 1e9
         t0 = time.perf_counter()
         vm.verify(pre_v, proof, com)
         verify_v = time.perf_counter() - t0
         print(f"{phase}: Jolt VM {label} T=2^{T.bit_length() - 1} C=4 "
               f"M=2^{vm.M.bit_length() - 1} HyperKZG: prove_s={prove_v:.3f} "
-              f"verify_s={verify_v:.3f} peak_mem_GB={peak:.2f} [{card}]",
+              f"verify_s={verify_v:.3f} peak_mem_GB={peak:.2f} (of which "
+              f"{held:.2f} GB the recorded calls' copies) [{card}]",
               flush=True)
         print(f"{phase}: launches per {label} prove "
               f"{json.dumps(prove_counts)}", flush=True)
@@ -733,11 +822,13 @@ def main() -> None:
         torch.cuda.empty_cache()
         return counts, prove_counts, io
 
-    # -- phase 6: the mini VM, fibonacci at T = 2^16 ----------------------
+    # -- phase 6: the mini VM, fibonacci at T = 2^14 ----------------------
     fib_counts, fib_prove_counts, _ = vm_path(
         "phase 6", f"fib({FIB_N})", cli.fib_vm(FIB_M),
         fibonacci_program(FIB_N), FIB_STEPS, FIB_T, max_input_size=32,
         max_output_size=32)
+
+    phase_done("phase 6")
 
     # -- phase 7: fib(3) on the card, on the CPU, and jolt_tpu's ----------
     with np.load(ROOT / "fixtures" / "port" / "fib3_hyperkzg.npz") as z:
@@ -764,6 +855,8 @@ def main() -> None:
     print("phase 7: fib(3) card == CPU == jolt_tpu transcript "
           f"({len(frozen)} states)", flush=True)
 
+    phase_done("phase 7")
+
     # -- phase 8: the full RV32I VM, sha2-chain(13) at T = 2^16 ----------
     sha2_counts, sha2_prove_counts, io8 = vm_path(
         "phase 8", f"sha2-chain({SHA2_ITERS})", rv32i_vm(),
@@ -775,6 +868,8 @@ def main() -> None:
              "not hashlib's")
     print(f"phase 8: sha2-chain({SHA2_ITERS}) output {out8.hex()} == "
           f"hashlib.sha256 iterated {SHA2_ITERS} times", flush=True)
+
+    phase_done("phase 8")
 
     # -- phase 9: rv32i_vm() at M = 2^16 against jolt_tpu's frozen proofs
     vm9 = rv32i_vm()
@@ -823,6 +918,8 @@ def main() -> None:
         del pre9, pcs9, p9, c9, t9
     torch.cuda.empty_cache()
 
+    phase_done("phase 9")
+
     # -- phase 10: the user's path: ELF bytes -> SDK -> proof bytes -------
     with tempfile.TemporaryDirectory() as td:
         elf_path = Path(td) / f"sha3_chain_{SHA3_ITERS}.elf"
@@ -833,22 +930,24 @@ def main() -> None:
           f"file of {len(elf)} bytes", flush=True)
     largest10 = start_recording(by_batch=True)
     nat.reset_launch_counts()
-    t0 = time.perf_counter()
     prove10, verify10 = sdk.build_provable(elf, pcs="hyperkzg", device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     out10, art10 = prove10(cli.SHA2_INPUT)
     torch.cuda.synchronize()
-    warm10 = time.perf_counter() - t0
+    prove10_s = time.perf_counter() - t0
+    peak10, held10 = (torch.cuda.max_memory_allocated() / 1e9,
+                      held_gb(largest10))
     sha3_counts = nat.launch_counts()
     stop_recording()
     T10 = 1 << (art10.trace_length - 1).bit_length()
     if (art10.trace_length, T10) != (SHA3_STEPS, SHA3_T):
         fail(f"{label10} traced to {art10.trace_length} steps, padded to "
              f"{T10}, not {SHA3_STEPS} and {SHA3_T}")
-    print(f"phase 10: build_provable(ELF bytes) + warm-up prove (decode, "
-          f"native trace to {art10.trace_length} steps, T = 2^"
-          f"{T10.bit_length() - 1}, SRS and preprocessing, prove) "
-          f"{warm10:.3f} s; main-path launches {json.dumps(sha3_counts)}",
-          flush=True)
+    print(f"phase 10: build_provable(ELF bytes) and its first prove "
+          f"(native trace to {art10.trace_length} steps, T = 2^"
+          f"{T10.bit_length() - 1}, SRS and preprocessing, prove); "
+          f"main-path launches {json.dumps(sha3_counts)}", flush=True)
     check_and_replay("phase 10", label10, sha3_counts, largest10)
     del largest10
     if out10[:32] != sha3_chain_expected(cli.SHA2_INPUT, SHA3_ITERS):
@@ -885,26 +984,184 @@ def main() -> None:
               f"opening bumped by one is rejected ({e})", flush=True)
     else:
         fail(f"{label10}: a proof with an opening bumped by one verified")
-    del art10, back10
-    nat.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out10, art10 = prove10(cli.SHA2_INPUT)
-    torch.cuda.synchronize()
-    prove10_s = time.perf_counter() - t0
-    sha3_prove_counts = nat.launch_counts()
-    peak10 = torch.cuda.max_memory_allocated() / 1e9
+    del back10
     t0 = time.perf_counter()
     verify10(art10)
     verify10_s = time.perf_counter() - t0
+    sha3_prove_counts = sha3_counts     # the SDK sets up inside its prove
     print(f"phase 10: SDK {label10} T=2^{T10.bit_length() - 1} C=4 M=2^16 "
-          f"HyperKZG: prove_s={prove10_s:.3f} (native trace included) "
-          f"verify_s={verify10_s:.3f} peak_mem_GB={peak10:.2f} [{card}]",
-          flush=True)
+          f"HyperKZG: prove_s={prove10_s:.3f} (native trace, SRS and "
+          f"preprocessing included) verify_s={verify10_s:.3f} "
+          f"peak_mem_GB={peak10:.2f} (of which {held10:.2f} GB the recorded "
+          f"calls' copies) [{card}]", flush=True)
     print(f"phase 10: launches per {label10} prove "
           f"{json.dumps(sha3_prove_counts)}", flush=True)
     del prove10, verify10, art10
     torch.cuda.empty_cache()
+
+    phase_done("phase 10")
+
+    # -- phase 11: the commitment schemes at 2^20 -------------------------
+    n11 = 1 << PCS_LOGN
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def opening(poly, point):
+        return FElt(fd.to_int(FR, mle.evaluate_device(
+            FR, poly, mle.eq_evals_device(FR, point, dev))), FR)
+
+    poly11 = cli.pcs_poly(n11, dev)
+    rnd11 = random.Random(11)
+    point11 = [FElt(rnd11.randrange(FR.p), FR) for _ in range(PCS_LOGN)]
+    y11 = opening(poly11, point11)
+    pcs_rows = {}
+
+    def scheme11(name, setup, tamper):
+        """Set up, commit the pcs-bench polynomial cold and warm, open it at
+        point11, verify, and refuse tamper(proof) = (proof', opening')."""
+        before = nat.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        pcs11, setup_s = timed(setup)
+        _, cold = timed(lambda: pcs11.commit(poly11))
+        com, warm = timed(lambda: pcs11.commit(poly11))
+        label = name.encode()
+        proof, open_s = timed(lambda: pcs11.prove(poly11, point11,
+                                                  Transcript(label)))
+        _, verify_s = timed(lambda: pcs11.verify(
+            proof, Transcript(label), point11, y11, com))
+        bad_proof, bad_y = tamper(proof)
+        try:
+            pcs11.verify(bad_proof, Transcript(label), point11, bad_y, com)
+        except VerificationError:
+            pass
+        else:
+            fail(f"{name}: a tampered opening verified")
+        row = dict(setup_s=setup_s, commit_cold_s=cold, commit_warm_s=warm,
+                   open_s=open_s, verify_s=verify_s,
+                   peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9,
+                   launches={k: v - before[k] for k, v in
+                             nat.launch_counts().items()})
+        pcs_rows[name] = row
+        print(f"phase 11: {name} 2^{PCS_LOGN}: {json.dumps(row)}; the "
+              f"tampered opening is refused [{card}]", flush=True)
+        return pcs11, com
+
+    nat.reset_launch_counts()
+    bump = lambda proof: (proof, y11 + FElt(1, FR))
+    # HyperKZG over phase 3's 2^20-point SRS, still held, and Zeromorph:
+    # their largest K1, K5 (and Zeromorph's SRS K6) calls replayed
+    largest11 = start_recording(by_batch=False)
+    scheme11("hyperkzg", lambda: pcs, bump)
+    zm11, _ = scheme11("zeromorph", lambda: Zeromorph.setup(n11, device=dev),
+                       bump)
+    stop_recording()
+    check_and_replay("phase 11", "kzg", nat.launch_counts(), largest11,
+                     KZG_KERNELS)
+    got = [p.to_affine() for p in cd.jacobian_to_host(
+        *(t[:, :1 << 10] for t in zm11.pk.g1_jac))]
+    if got != [p for f in host_checks["srs"] for p in f.result()]:
+        fail("Zeromorph: the first 2^10 SRS points are not g * tau^i")
+    print(f"phase 11: Zeromorph SRS ({zm11.pk.n} points, seed 0x5A4D): its "
+          "first 2^10 points == host g * tau^i", flush=True)
+    del zm11
+    largest11 = start_recording(by_batch=False)
+    hx11, _ = scheme11("hyrax", lambda: HyraxScheme.setup(n11, device=dev),
+                       lambda proof: (HyraxOpeningProof(
+                           [proof.vector_matrix_product[0] + FElt(1, FR)]
+                           + proof.vector_matrix_product[1:]), y11))
+    stop_recording()
+    hyrax_counts = pcs_rows["hyrax"]["launches"]
+    check_and_replay("phase 11", "hyrax", hyrax_counts, largest11,
+                     HYRAX_KERNELS)
+    del largest11
+    if hx11.gens.points != [p for f in host_checks["gens"]
+                            for p in f.result()]:
+        fail("Hyrax: the generators differ from the host's g * k")
+    _HOST_POOL.shutdown()
+    _HOST_POOL = None
+    print(f"phase 11: {len(hx11.gens.points)} Hyrax generators == host "
+          "g * k (k from random.Random(b'Jolt v1 Hyrax generators'))",
+          flush=True)
+    # four polynomials opened together, at 2^16: the host verifier's RLC
+    # of the row commitments costs 4 scalar multiplications per row
+    nb = 1 << 16
+    before_b = nat.launch_counts()
+    polys_b = [cli.pcs_poly(nb, dev, seed) for seed in range(4)]
+    point_b = point11[:16]
+    openings_b = [opening(p, point_b) for p in polys_b]
+    coms_b = hx11.batch_commit(polys_b)
+    proof_b = hx11.prove_batched(polys_b, point_b, openings_b,
+                                 Transcript(b"hxb"), BatchType.SMALL)
+    proof_b.verify(hx11, point_b, openings_b, coms_b, Transcript(b"hxb"))
+    bad_b = [openings_b[0] + FElt(1, FR)] + openings_b[1:]
+    try:
+        proof_b.verify(hx11, point_b, bad_b, coms_b, Transcript(b"hxb"))
+    except VerificationError:
+        pass
+    else:
+        fail("BatchedHyraxOpeningProof: a tampered opening verified")
+    print("phase 11: BatchedHyraxOpeningProof of four 2^16 polynomials "
+          "verifies, and is refused with one opening bumped by one",
+          flush=True)
+    # the path's launches: each scheme's run and the batched proof, not the
+    # replays against the plain versions between them
+    pcs_counts = {k: v - before_b[k] + sum(r["launches"][k]
+                                           for r in pcs_rows.values())
+                  for k, v in nat.launch_counts().items()}
+    missing = [k for k in PCS_KERNELS if pcs_counts[k] <= 0]
+    if missing:
+        fail(f"kernels of the commitment schemes' path never launched: "
+             f"{missing}")
+    print(f"phase 11: launches of the commitment schemes' path "
+          f"{json.dumps(pcs_counts)}", flush=True)
+    del hx11, polys_b, coms_b, proof_b
+    torch.cuda.empty_cache()
+
+    # reference: 2^10 commitments on the card and the CPU, two against the
+    # host MSM; jolt_tpu's frozen openings (transcripts, commitments,
+    # proofs) reproduced on the card
+    t0 = time.perf_counter()
+    poly10 = cli.pcs_poly(1 << 10, dev)
+    coms10 = {}
+    for name, cls in cli.PCS.items():
+        pair = []
+        for d in (dev, torch.device("cpu")):
+            c = cls.setup(1 << 10, device=d).commit(poly10.to(d))
+            pair.append(c.row_commitments if name == "hyrax" else [c.point])
+        if pair[0] != pair[1]:
+            fail(f"{name} 2^10: card and CPU commitments differ")
+        coms10[name] = pair[0]
+    scal10 = [int(v) for v in fd.device_to_ints(FR, poly10)]
+    srs10 = [G1Jacobian(int(a), int(b), int(c)).to_affine()
+             for a, b, c in zip(*(fd.unpack_ints(fd.from_mont_device(
+                 FQ, torch.from_numpy(fix[k][:, :1 << 10].astype(np.int32))))
+                 for k in ("X", "Y", "Z")))]
+    gens10 = HyraxScheme.setup(1 << 10, device=dev).gens.points
+    if coms10["hyperkzg"][0] != g1_msm_host(srs10, scal10):
+        fail("HyperKZG 2^10: the commitment differs from the host MSM")
+    if coms10["hyrax"][0] != g1_msm_host(gens10, scal10[:len(gens10)]):
+        fail("Hyrax 2^10: row 0 differs from the host MSM")
+    got11 = pfx.prove_port_cases(dev)
+    for case in ("zeromorph_l6", "hyrax_l7"):
+        with np.load(ROOT / "fixtures" / "port" / f"{case}.npz") as z:
+            bad = [k for k in z.files if not np.array_equal(z[k], got11[k])]
+        if bad:
+            fail(f"{case}: {bad} differ from jolt_tpu's "
+                 f"(fixtures/port/{case}.npz)")
+    print(f"phase 11: 2^10 commitments card == CPU for "
+          f"{', '.join(cli.PCS)}; HyperKZG's and Hyrax's row 0 == host MSM; "
+          f"jolt_tpu's frozen Zeromorph (ell = 3, 6) and Hyrax (ell = 3, 6, "
+          f"7; ratio 1, 4; batched x 4) openings reproduced on the card: "
+          f"{len(got11)} arrays ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    phase_done("phase 11")
+    print(f"phase wall seconds {json.dumps(walls)}, total "
+          f"{sum(walls.values()):.1f}", flush=True)
 
     # -- summary ----------------------------------------------------------
     kernels = []
@@ -926,7 +1183,10 @@ def main() -> None:
             "launches_sha2_main_path": sha2_counts[k.name],
             "launches_per_sha2_prove": sha2_prove_counts[k.name],
             "launches_sha3_main_path": sha3_counts[k.name],
-            "launches_per_sha3_prove": sha3_prove_counts[k.name]}
+            "launches_per_sha3_prove": sha3_prove_counts[k.name],
+            "launches_pcs_path": pcs_counts[k.name],
+            "launches_pcs_by_scheme": {name: r["launches"][k.name]
+                                       for name, r in pcs_rows.items()}}
         row.update(usage[k.name])
         if k.name in more:
             row["more_shapes"] = more[k.name]
@@ -936,6 +1196,11 @@ def main() -> None:
                         (f"phase 10 {label10}", "at_sha3_shape")):
             if ph in results[k.name]:
                 row[key] = results[k.name][ph]
+        pcs_calls = [results[k.name][ph] for ph in
+                     ("phase 11 hyrax", "phase 11 kzg") if ph in
+                     results[k.name]]
+        if pcs_calls:           # the larger; Hyrax's on a tie (K6)
+            row["at_pcs_shape"] = max(pcs_calls, key=lambda r: r["bound_ms"])
         if k.name in OFF_PATH:
             row["off_main_path"] = OFF_PATH[k.name]
         kernels.append(row)

@@ -9,6 +9,8 @@
     python -m jolt_tpu_torch.cli prove-guest --guest GUEST [--n 1]
         [--pcs mock|hyperkzg] [--device cuda|cpu]
     python -m jolt_tpu_torch.cli analyze [--guest sha2-chain] [--n 1]
+    python -m jolt_tpu_torch.cli pcs-bench [--pcs hyperkzg|zeromorph|hyrax]
+        [--logn 12] [--device cuda|cpu]
 
 `surge-bench` is the fork's headline benchmark (bench.rs:109-210), as
 jolt_tpu's `cli.py surge-bench` runs it: Surge XOR lookups with C = 4,
@@ -22,10 +24,16 @@ size the reference's bench prints; it is null for the mock PCS, whose
 proofs hold no curve points.  `prove-guest` proves one of GUESTS on
 rv32i_vm() and checks its output against the guest's host oracle;
 `analyze` prints a guest's trace length and per-opcode histogram.
+`pcs-bench` times one commitment scheme's setup and commit of a 2^logn
+polynomial (benches/pcs_bench.rs; jolt_tpu's cli.py:85-114): values below
+2^63 from default_rng(0), one commit with its first-call costs, then a
+warm one; its JSON line adds the peak device memory and the SHA-256 of the
+commitment's points (x || y, as convert.py writes them).
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import time
 
@@ -34,7 +42,11 @@ import torch
 
 from ._device import resolve_device
 from .commitment.hyperkzg import HyperKZG
+from .commitment.hyrax import HyraxScheme
 from .commitment.mock import MockCommitmentScheme
+from .commitment.zeromorph import Zeromorph
+from .convert import points_to_numpy
+from .field import device as fd
 from .field.spec import fr_spec
 from .instructions import AddInstruction, BneInstruction, XorInstruction
 from .lasso import SurgePreprocessing, surge_prove, surge_verify
@@ -218,6 +230,48 @@ def analyze(guest: str = "sha2-chain", n: int = 1) -> dict:
             "opcodes": {op.name: k for op, k in summary.analyze()}}
 
 
+PCS = {"hyperkzg": HyperKZG, "zeromorph": Zeromorph, "hyrax": HyraxScheme}
+
+
+def pcs_poly(n: int, device, seed: int = 0) -> torch.Tensor:
+    """pcs-bench's polynomial: n values in [1, 2^63) from
+    default_rng(seed), as jolt_tpu's cli.py:104-105 draws them, in
+    Montgomery form on `device`."""
+    rng = np.random.default_rng(seed)
+    return fd.u64_to_mont_device(
+        fr_spec(), rng.integers(1, 1 << 63, size=n, dtype=np.uint64), device)
+
+
+def pcs_bench(pcs_name: str = "hyperkzg", logn: int = 12, device=None
+              ) -> dict:
+    """Setup, cold commit and warm commit seconds of one scheme at 2^logn,
+    the peak device memory (bytes; null on the CPU) and the commitment's
+    SHA-256."""
+    dev = resolve_device(device)
+    n = 1 << logn
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pcs = PCS[pcs_name].setup(n, device=dev)
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
+    poly = pcs_poly(n, dev)
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        com = pcs.commit(poly)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+    pts = com.row_commitments if pcs_name == "hyrax" else [com.point]
+    return {"pcs": pcs_name, "logn": logn, "setup_seconds": setup_s,
+            "commit_seconds_cold": secs[0], "commit_seconds_warm": secs[1],
+            "peak_device_memory_bytes": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else None,
+            "commitment_sha256": hashlib.sha256(
+                points_to_numpy(pts).tobytes()).hexdigest(),
+            "device": device_name(dev)}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m jolt_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -248,7 +302,16 @@ def main(argv=None) -> None:
     an = sub.add_parser("analyze", help="a guest's per-opcode histogram")
     an.add_argument("--guest", choices=tuple(GUESTS), default="sha2-chain")
     an.add_argument("--n", type=int, default=1)
+    pb = sub.add_parser("pcs-bench", help="one commitment scheme's setup "
+                        "and commit of a 2^logn polynomial")
+    pb.add_argument("--pcs", choices=tuple(PCS), default="hyperkzg")
+    pb.add_argument("--logn", type=int, default=12)
+    pb.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.cmd == "pcs-bench":
+        print(json.dumps(pcs_bench(args.pcs, args.logn, device=args.device)),
+              flush=True)
+        return
     if args.cmd == "prove-guest":
         print(json.dumps(prove_guest(args.guest, args.n, args.pcs,
                                      device=args.device)), flush=True)

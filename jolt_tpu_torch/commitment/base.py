@@ -6,6 +6,7 @@ in the reference without changing what is committed.
 from __future__ import annotations
 
 import enum
+from dataclasses import dataclass
 
 
 class BatchType(enum.Enum):
@@ -14,3 +15,10 @@ class BatchType(enum.Enum):
     SURGE_READ_WRITE = "surge_read_write"
     SURGE_INIT_FINAL = "surge_init_final"
     GRAND_PRODUCT = "grand_product"
+
+
+@dataclass(frozen=True)
+class CommitShape:
+    """A polynomial length and batch type a scheme is set up for."""
+    input_length: int
+    batch_type: BatchType

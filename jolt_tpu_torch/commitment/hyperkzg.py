@@ -31,7 +31,8 @@ from ..subprotocols.sumcheck import VerificationError
 from ..transcript import Transcript
 from .base import BatchType
 from .kzg import (SRS_SEED, KZGProverKey, KZGVerifierKey, _powers_device,
-                  kzg_commit_batch, kzg_quotient, srs_setup, verifier_key)
+                  kzg_commit, kzg_commit_batch, kzg_quotient, srs_setup,
+                  verifier_key)
 
 
 @dataclass
@@ -69,6 +70,9 @@ class HyperKZG:
         """An SRS of max_len points on `device` (default: the CUDA card)."""
         return cls(srs_setup(max_len, resolve_device(device), seed),
                    verifier_key(seed))
+
+    def commit(self, poly: torch.Tensor) -> HyperKZGCommitment:
+        return HyperKZGCommitment(kzg_commit(self.pk, poly))
 
     def batch_commit(self, polys: Sequence[torch.Tensor],
                      batch_type: BatchType = BatchType.BIG

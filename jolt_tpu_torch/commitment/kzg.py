@@ -17,6 +17,7 @@ pairing check.
 """
 from __future__ import annotations
 
+import functools
 import random
 import re
 from dataclasses import dataclass
@@ -57,8 +58,11 @@ def verifier_key(seed: int = SRS_SEED) -> KZGVerifierKey:
     return KZGVerifierKey(G1Affine.generator(), g2, g2.mul(srs_tau(seed)))
 
 
+@functools.cache
 def _fixed_base_table(base: G1Affine, c: int = 8, windows: int = 32):
-    """Host table T[w][d] = base * (d << (c*w)); [windows, 2^c] affine."""
+    """Host table T[w][d] = base * (d << (c*w)); [windows, 2^c] affine.
+    Kept once computed (8,192 host adds and inverses, about half a second):
+    every SRS and every set of Pedersen generators reads the generator's."""
     table = []
     cur_base = base.to_jacobian()
     for _ in range(windows):
@@ -117,8 +121,16 @@ def srs_generate(n: int, device, seed: int = SRS_SEED):
         for _ in range(-(-n // C) - 1):
             chunk = fd.fmul(FR, chunk, step)
             chunks.append(chunk)
-    canon = fd.from_mont_device(FR, torch.cat(chunks, dim=1)[:, :n])
+    return fixed_base_points(
+        fd.from_mont_device(FR, torch.cat(chunks, dim=1)[:, :n]))
 
+
+def fixed_base_points(canon: torch.Tensor):
+    """g * k for canonical scalar limbs k [16, n] (k < 2^256), on their
+    device: the 32 byte-windows of each k gather entries of a host table
+    of g * (d << 8w), and a tree of Jacobian adds (K6) sums them.  Returns
+    Jacobian (X, Y, Z) [16, n]."""
+    device, n = canon.device, canon.shape[1]
     table = _fixed_base_table(G1Affine.generator())
     tx = fd.ints_to_device(cd.FQ, [[p.x for p in row] for row in table],
                            device)
@@ -159,6 +171,19 @@ def srs_setup(max_degree: int, device, seed: int = SRS_SEED) -> KZGProverKey:
                                      .astype(np.int32)).to(device)
                     for k in ("X", "Y", "Z"))
     return KZGProverKey(pts, n)
+
+
+def kzg_commit(pk: KZGProverKey, coeffs_mont: torch.Tensor) -> G1Affine:
+    """Commit to one coefficient vector (the bitplane MSM over the SRS)."""
+    return kzg_commit_batch(pk, [coeffs_mont])[0]
+
+
+def _msm_jac(points_jac, scalars_mont: torch.Tensor) -> G1Affine:
+    """The bitplane MSM (K5) of Montgomery Fr scalars [16, n] over the
+    first n of Jacobian device bases (X, Y, Z)."""
+    n = scalars_mont.shape[-1]
+    return cd.batch_msm_bitplane(tuple(t[:, :n] for t in points_jac),
+                                 [scalars_mont])[0]
 
 
 def kzg_commit_batch(pk: KZGProverKey, polys: list) -> list[G1Affine]:

@@ -131,6 +131,36 @@ def g1_msm_host(points: list[G1Affine], scalars: list[int]) -> G1Affine:
     return acc.to_affine()
 
 
+def g1_msm_buckets(points: list[G1Affine], scalars: list[int]) -> G1Affine:
+    """sum_i s_i * P_i on the host by the bucket method: c-bit windows,
+    top first; each window's points go to the bucket of their digit, and a
+    running sum over the buckets weights bucket d by d.  About
+    (N + 2^(c+1)) adds per window against N * (bits + bits / 2) for
+    g1_msm_host: six times fewer at N = 1,024 (the verifiers' MSMs)."""
+    terms = [(p.to_jacobian(), s % R_ORDER) for p, s in zip(points, scalars)
+             if not p.is_infinity and s % R_ORDER]
+    if not terms:
+        return G1Affine.identity()
+    c = max(2, len(terms).bit_length() - 3)
+    mask = (1 << c) - 1
+    bits = max(s for _, s in terms).bit_length()
+    acc = G1Jacobian.identity()
+    for w in reversed(range(-(-bits // c))):
+        for _ in range(c):
+            acc = acc.double()
+        buckets = [G1Jacobian.identity()] * (mask + 1)
+        for p, s in terms:
+            d = (s >> (w * c)) & mask
+            if d:
+                buckets[d] = buckets[d].add(p)
+        run = total = G1Jacobian.identity()
+        for d in range(mask, 0, -1):
+            run = run.add(buckets[d])
+            total = total.add(run)
+        acc = acc.add(total)
+    return acc.to_affine()
+
+
 # --- G2 over Fq2 = Fq[u]/(u^2+1) --------------------------------------------
 
 def fq2_mul(a, b):

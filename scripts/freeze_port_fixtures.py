@@ -26,6 +26,18 @@ jolt_tpu on the CPU and written to `fixtures/port/<case>.npz`:
     rv32i_loadstore_hyperkzg  `loadstore_program` on rv32i_vm(), HyperKZG
                        over the 2^16-point SRS fixture; adds the SHA-256
                        and length of the proof's arkworks bytes
+    jolt_parts     jolt_tpu's side of tests/test_torch_jolt_parts.py (the
+                   toggled grand product, the opening reduction, HyperKZG's
+                   and KZG's openings at ell = 6, the MLE helpers) on the
+                   inputs of `parts_inputs`
+    zeromorph_l6   Zeromorph (SRS seed 0x5A4D) opened at ell = 3 and 6:
+                   transcript, commitment and every proof element
+    hyrax_l7       Hyrax at ell = 3, 6, 7 and ratios 1 and 4, and a
+                   BatchedHyraxOpeningProof of four polynomials at ell = 6:
+                   transcripts, row commitments and vector-matrix products
+                   (both cases: jolt_tpu_torch/commitment/fixtures.py;
+                   run with JOLT_TPU_SRS_CACHE=0, which this script sets,
+                   so that jolt_tpu writes no SRS into fixtures/srs/)
     fib3_proof_bytes   the three fib3 proofs' `proof_size_bytes`, and the
                        HyperKZG one's canonical and arkworks bytes (SHA-256
                        and length), as fixtures/port/fib3_proof_bytes.json
@@ -53,9 +65,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "fixtures" / "port"
 sys.path.insert(0, str(ROOT))
+from jolt_tpu_torch.commitment.fixtures import field_ints  # noqa: E402
 from jolt_tpu_torch.vm import fixtures as fx  # noqa: E402
 
 CASES = ("mock", "hyperkzg", "parity")
+PCS_CASES = ("zeromorph_l6", "hyrax_l7")
 
 
 def ark_bytes(vm, pre, proof, commitments) -> bytes:
@@ -168,12 +182,160 @@ def fib3_proof_bytes() -> dict:
     return out
 
 
+PARTS_ELL = 6
+
+
+def parts_inputs() -> dict:
+    """The numpy-seeded inputs of tests/test_torch_jolt_parts.py."""
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2, size=(3, 16)).astype(bool)
+    toggled = (bits, field_ints(rng, 6, 16))
+    rng = np.random.default_rng(9)
+    groups = []
+    for ell in (3, 2, 3):
+        point = [int(x) for x in field_ints(rng, ell)]
+        groups.append((point, field_ints(rng, 2, 1 << ell)))
+    rng = np.random.default_rng(13)
+    hyperkzg = (field_ints(rng, 1 << PARTS_ELL),
+                [int(x) for x in field_ints(rng, PARTS_ELL)])
+    rng = np.random.default_rng(17)
+    kzg = (field_ints(rng, 1 << PARTS_ELL), int(field_ints(rng, 1)[0]))
+    rng = np.random.default_rng(21)
+    mle = (field_ints(rng, 3, 16), [int(x) for x in field_ints(rng, 4)])
+    return {"toggled": toggled, "openings": groups, "hyperkzg": hyperkzg,
+            "kzg": kzg, "mle": mle}
+
+
+def jolt_parts_arrays() -> dict:
+    """jolt_tpu's outputs on `parts_inputs`: transcripts' state_history,
+    claims and evaluations (uint8 [k, 32]), points (uint8 [k, 64]) and
+    device limbs (uint32 [16, ...])."""
+    from jolt_tpu.commitment import MockCommitmentScheme
+    from jolt_tpu.commitment import kzg as jkzg
+    from jolt_tpu.commitment.hyperkzg import HyperKZG
+    from jolt_tpu.field import FElt, fr_spec
+    from jolt_tpu.field import device as jfd
+    from jolt_tpu.poly import mle as jmle
+    from jolt_tpu.poly.opening_proof import ProverOpeningAccumulator
+    from jolt_tpu.subprotocols import grand_product as jgp
+    from jolt_tpu.subprotocols import sumcheck as jsumcheck
+    from jolt_tpu.transcript import Transcript
+    from jolt_tpu_torch.commitment.fixtures import states
+    from jolt_tpu_torch.convert import points_to_numpy, scalars_to_numpy
+
+    spec = fr_spec()
+    felts = lambda xs: [FElt(int(x), spec) for x in xs]
+    dev = lambda vals: jfd.ints_to_device(spec, vals.tolist())
+    limbs = lambda a: np.asarray(a).astype(np.uint32)
+    inp = parts_inputs()
+    out = {}
+
+    bits, fps = inp["toggled"]
+    circ = jgp.ToggledBatchedGrandProduct(bits, dev(fps), spec)
+    out["gp_claims"] = scalars_to_numpy(circ.claims())
+    t = Transcript(b"toggled")
+    proof, r = circ.prove(t)
+    out.update(gp_states=states(t), gp_r=scalars_to_numpy(r),
+               gp_left=np.stack([scalars_to_numpy(lp.left_claims)
+                                 for lp in proof.layers]),
+               gp_right=np.stack([scalars_to_numpy(lp.right_claims)
+                                  for lp in proof.layers]))
+
+    acc, t = ProverOpeningAccumulator(spec), Transcript(b"openings")
+    for point, vals in inp["openings"]:
+        polys = dev(vals)
+        acc.append([polys[:, i] for i in range(2)],
+                   jmle.eq_evals_device(spec, point), felts(point),
+                   [jmle.evaluate_host(felts(row), felts(point))
+                    for row in vals], t)
+    red = acc.reduce_and_prove(MockCommitmentScheme(spec), t)
+    out.update(open_states=states(t),
+               open_claims=scalars_to_numpy(red.sumcheck_claims))
+
+    vals, point = inp["hyperkzg"]
+    pcs = HyperKZG.setup(1 << PARTS_ELL)
+    t = Transcript(b"hyperkzg")
+    proof = pcs.prove(dev(vals), felts(point), t)
+    out.update(hk_states=states(t), hk_com=points_to_numpy(proof.com),
+               hk_w=points_to_numpy(proof.w),
+               hk_v=np.stack([scalars_to_numpy(row) for row in proof.v]))
+
+    b, u = inp["kzg"]
+    w = jkzg.kzg_open_no_rem(pcs.pk, dev(b), FElt(u, spec))
+    out.update(kzg_w=points_to_numpy([w]), kzg_v=scalars_to_numpy(
+        [jkzg.poly_eval_device(dev(b), FElt(u, spec))]))
+
+    vals, point = inp["mle"]
+    z = dev(vals)
+    eq = jmle.eq_evals_device(spec, point)
+    cols = [z[:, i] for i in range(3)]
+    out.update(mle_eq=limbs(eq), mle_eval=limbs(jmle.evaluate_device(
+        spec, z, eq)), mle_many=scalars_to_numpy(
+        jmle.evaluate_many_host(spec, cols, eq)),
+        mle_from_ints=limbs(jmle.mle_from_ints(spec, vals.tolist())),
+        mle_to_felts=scalars_to_numpy(jmle.mle_to_felts(spec, z).ravel()),
+        comb_product=limbs(jsumcheck.comb_product(spec, cols)))
+    return out
+
+
+def prove_pcs_case(case: str) -> dict:
+    """jolt_tpu's openings of `zeromorph_l6` or `hyrax_l7`, each verified
+    by jolt_tpu, as the arrays of jolt_tpu_torch/commitment/fixtures.py."""
+    from jolt_tpu.commitment.base import BatchType
+    from jolt_tpu.commitment.hyrax import HyraxScheme
+    from jolt_tpu.commitment.zeromorph import Zeromorph
+    from jolt_tpu.field import FElt, fr_spec
+    from jolt_tpu.poly import mle
+    from jolt_tpu.transcript import Transcript
+    from jolt_tpu_torch.commitment import fixtures as pfx
+
+    spec = fr_spec()
+    felts = lambda xs: [FElt(x, spec) for x in xs]
+    out = {}
+    if case == "zeromorph_l6":
+        for ell in pfx.ZEROMORPH_ELLS:
+            vals, point = pfx.zeromorph_inputs(ell)
+            pcs = Zeromorph.setup(1 << ell)
+            poly = mle.mle_from_ints(spec, vals)
+            com = pcs.commit(poly)
+            t = Transcript(pfx.ZEROMORPH_LABEL)
+            proof = pcs.prove(poly, felts(point), t)
+            pcs.verify(proof, Transcript(pfx.ZEROMORPH_LABEL), felts(point),
+                       mle.evaluate_host(felts(vals), felts(point)), com)
+            out.update(pfx.zeromorph_arrays(ell, t, com, proof))
+        return out
+    for ell, ratio in pfx.HYRAX_CASES:
+        vals, point = pfx.hyrax_inputs(ell, ratio)
+        pcs = HyraxScheme.setup(1 << ell, ratio)
+        poly = mle.mle_from_ints(spec, vals)
+        com = pcs.commit(poly, ratio)
+        t = Transcript(pfx.HYRAX_LABEL)
+        proof = pcs.prove(poly, felts(point), t, ratio)
+        pcs.verify(proof, Transcript(pfx.HYRAX_LABEL), felts(point),
+                   mle.evaluate_host(felts(vals), felts(point)), com, ratio)
+        out.update(pfx.hyrax_arrays(ell, ratio, t, com, proof))
+    all_vals, point = pfx.hyrax_batch_inputs()
+    pcs = HyraxScheme.setup(1 << pfx.HYRAX_BATCH_ELL)
+    polys = [mle.mle_from_ints(spec, v) for v in all_vals]
+    coms = [pcs.commit(p) for p in polys]
+    openings = [mle.evaluate_host(felts(v), felts(point)) for v in all_vals]
+    t = Transcript(pfx.HYRAX_BATCH_LABEL)
+    proof = pcs.prove_batched(polys, felts(point), openings, t,
+                              BatchType.SMALL)
+    proof.verify(pcs, felts(point), openings, coms,
+                 Transcript(pfx.HYRAX_BATCH_LABEL))
+    out.update(pfx.hyrax_batch_arrays(t, coms, proof))
+    return out
+
+
 def main(argv=None) -> None:
+    os.environ["JOLT_TPU_SRS_CACHE"] = "0"   # write nothing into fixtures/srs
     import jax
     jax.config.update("jax_platforms", "cpu")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     names = [f"fib3_{c}" for c in CASES] + ["narrow_mock", *fx.RV32I_CASES,
                                             *fx.RV32I_HYPERKZG_CASES,
+                                            *PCS_CASES, "jolt_parts",
                                             "fib3_proof_bytes"]
     chosen = list(argv if argv is not None else sys.argv[1:]) or names
     for name in chosen:
@@ -186,8 +348,14 @@ def main(argv=None) -> None:
             print(f"{path.relative_to(ROOT)}: "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             continue
-        arrays = prove_case(name[len("fib3_"):]) if name.startswith("fib3_") \
-            else prove_rv32i_case(name)
+        if name in PCS_CASES:
+            arrays = prove_pcs_case(name)
+        elif name == "jolt_parts":
+            arrays = jolt_parts_arrays()
+        elif name.startswith("fib3_"):
+            arrays = prove_case(name[len("fib3_"):])
+        else:
+            arrays = prove_rv32i_case(name)
         path = OUT_DIR / f"{name}.npz"
         np.savez_compressed(path, **arrays)
         print(f"{path.relative_to(ROOT)}: "

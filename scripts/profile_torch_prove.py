@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time of one prove goes, in the PyTorch/CUDA port.
+"""Where the time of one prove (or one commit) goes, in the PyTorch/CUDA
+port.
 
     python3 scripts/profile_torch_prove.py [--nv 20]           # Surge XOR
     python3 scripts/profile_torch_prove.py --workload fib      # Jolt VM
     python3 scripts/profile_torch_prove.py --workload sha2     # full VM
     python3 scripts/profile_torch_prove.py --workload sha3     # the SDK
+    python3 scripts/profile_torch_prove.py --workload hyrax --logn 24
+        # one commit of pcs-bench's polynomial (also hyperkzg, zeromorph)
 
 on a CUDA card.  `surge` sets up as `python -m jolt_tpu_torch.cli
 surge-bench` does (C = 4, M = 2^16, operands from default_rng(0)); `fib`
-as chip_smoke.py's phase 6 (fibonacci(13000) on the mini VM, T = 2^16,
-C = 4, M = 2^16, HyperKZG); `sha2` as its phase 8 (sha2-chain(13) on
+proves fibonacci(13000) on the mini VM (T = 2^16, C = 4, M = 2^16,
+HyperKZG; chip_smoke.py's phase 6 proves fibonacci(3275) at T = 2^14);
+`sha2` as chip_smoke.py's phase 8 (sha2-chain(13) on
 rv32i_vm(), the input 0x05 x 32, T = 2^16, C = 4, M = 2^16, HyperKZG);
 `sha3` as its phase 10: sha3-chain(2) written to ELF bytes and proved
 through sdk.build_provable (HyperKZG), so each prove also traces the
-guest with the native tracer (44,479 steps, T = 2^16).
+guest with the native tracer (44,479 steps, T = 2^16); `hyperkzg`,
+`zeromorph` and `hyrax` commit `python -m jolt_tpu_torch.cli pcs-bench`'s
+2^logn polynomial after that command's setup, and "prove" below reads
+"commit".
 One warm-up prove and one unprofiled prove, then:
 
   1. one prove under torch.profiler (CPU and CUDA activities): wall time,
@@ -116,8 +123,11 @@ def replay_k2(prove, card: str, tag: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=("surge", "fib", "sha2", "sha3"),
+    ap.add_argument("--workload", choices=("surge", "fib", "sha2", "sha3",
+                                           "hyperkzg", "zeromorph", "hyrax"),
                     default="surge")
+    ap.add_argument("--logn", type=int, default=24,
+                    help="commitment schemes: log2 evaluations")
     ap.add_argument("--nv", type=int, default=20, help="Surge: log2 lookups")
     ap.add_argument("--fib-n", type=int, default=13000)
     ap.add_argument("--sha2-iters", type=int, default=13)
@@ -151,6 +161,11 @@ def main() -> None:
         pre, pcs = cli.surge_setup(args.nv)
         x, y = cli.surge_inputs(np.random.default_rng(0), args.nv)
         run = lambda: surge_prove(pre, pcs, x, y)  # noqa: E731
+    elif args.workload in cli.PCS:
+        tag = f"{args.workload} commit 2^{args.logn}"
+        pcs = cli.PCS[args.workload].setup(1 << args.logn)
+        poly = cli.pcs_poly(1 << args.logn, torch.device("cuda"))
+        run = lambda: pcs.commit(poly)  # noqa: E731
     elif args.workload == "sha3":
         sdk_prove, _ = sdk.build_provable(
             elf_image(sha3_chain_program(args.sha3_iters)), pcs="hyperkzg")

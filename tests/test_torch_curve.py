@@ -10,6 +10,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from jolt_tpu.curve import device as jcd
 from jolt_tpu.curve.bn254 import G1Jacobian as JG1Jacobian
@@ -27,6 +28,16 @@ FIXTURE = Path(__file__).resolve().parents[1] / "fixtures" / "srs" / \
     "srs_8192_6a6f6c74.npz"
 FQ = jfq_spec()
 N = 40          # points per batch: below the Pallas kernels' 256
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tensors are small, and the
+    test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _fixture():

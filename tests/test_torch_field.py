@@ -7,6 +7,7 @@ versions).  Every comparison is of integer limbs: the tolerance is zero.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from jolt_tpu.field import device as jfd
 from jolt_tpu.field import fq_spec as jfq_spec
@@ -17,6 +18,16 @@ from jolt_tpu_torch.field import kernels as tfk
 from jolt_tpu_torch.field.spec import fq_spec, fr_spec
 
 SPECS = {"fr": (jfr_spec(), fr_spec()), "fq": (jfq_spec(), fq_spec())}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tensors are small, and the
+    test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rand_field(rng, p, shape):

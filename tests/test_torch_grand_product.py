@@ -8,6 +8,7 @@ the port's proof.  The tolerance is zero.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from jolt_tpu.field import FElt as JFElt
 from jolt_tpu.field import device as jfd
@@ -27,6 +28,16 @@ from jolt_tpu_torch.transcript import Transcript
 
 JFR, FR = jfr_spec(), fr_spec()
 B = 8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tensors are small, and the
+    test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _mont_limbs(rng, shape):

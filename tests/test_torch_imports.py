@@ -7,7 +7,8 @@ to the CPU.
 - no source of the port, and not chip_smoke.py, imports them;
 - an entry point called with no CUDA card and no device="cpu" raises;
 - a kernel wrapper handed tensors that are not on the CPU launches its
-  kernel or raises: it never runs its plain version instead.
+  kernel or raises: it never runs its plain version instead, and neither
+  do the windowed MSM, Hyrax or Zeromorph.
 """
 import re
 import subprocess
@@ -20,8 +21,13 @@ import torch
 
 from jolt_tpu_torch import cli, sdk
 from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
+from jolt_tpu_torch.commitment.hyrax import HyraxScheme, PedersenGenerators
+from jolt_tpu_torch.commitment.kzg import KZGProverKey, verifier_key
 from jolt_tpu_torch.commitment.mock import MockCommitmentScheme
+from jolt_tpu_torch.commitment.zeromorph import Zeromorph
+from jolt_tpu_torch.curve import device as cd
 from jolt_tpu_torch.curve import kernels as ck
+from jolt_tpu_torch.curve.bn254 import G1Affine
 from jolt_tpu_torch.field import kernels as fk
 from jolt_tpu_torch.field.spec import fr_spec
 from jolt_tpu_torch.instructions import XorInstruction
@@ -40,7 +46,10 @@ bad = sorted(m for m in sys.modules
 need = {"jolt_tpu_torch.sdk", "jolt_tpu_torch.native",
         "jolt_tpu_torch.tracer.elf", "jolt_tpu_torch.tracer.elf_write",
         "jolt_tpu_torch.vm.analyze", "jolt_tpu_torch.utils.serialization",
-        "jolt_tpu_torch.utils.ark_proof", "jolt_tpu_torch.utils.ark_serialize"}
+        "jolt_tpu_torch.utils.ark_proof", "jolt_tpu_torch.utils.ark_serialize",
+        "jolt_tpu_torch.commitment.zeromorph",
+        "jolt_tpu_torch.commitment.hyrax",
+        "jolt_tpu_torch.commitment.fixtures", "jolt_tpu_torch.convert"}
 bad += sorted(f"not imported: {m}" for m in need - set(sys.modules))
 print(len([m for m in sys.modules if m.startswith("jolt_tpu_torch")]))
 sys.exit("loaded: " + ", ".join(bad) if bad else 0)
@@ -94,6 +103,10 @@ _ENTRY_POINTS = {
                                               "collatz", "--n", "3"]),
     "sdk.build_provable": lambda: sdk.build_provable(
         cli.GUESTS["collatz"][0](3), pcs="mock"),
+    "Zeromorph.setup": lambda: Zeromorph.setup(16),
+    "HyraxScheme.setup": lambda: HyraxScheme.setup(16),
+    "cli.pcs_bench": lambda: cli.pcs_bench("hyrax", 4),
+    "cli.main pcs-bench": lambda: cli.main(["pcs-bench", "--logn", "4"]),
 }
 
 
@@ -135,6 +148,28 @@ def test_kernel_wrappers_never_fall_back(name):
     anything but CUDA; nothing is computed by the plain version."""
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         _WRAPPERS[name]()
+
+
+def _meta_points(n):
+    return (_meta(16, n), _meta(16, n), _meta(16, n))
+
+
+_MSM_PATHS = {
+    "msm": lambda: cd.msm(_meta_points(4), _meta(16, 1, 4)),
+    "HyraxScheme.commit": lambda: HyraxScheme(PedersenGenerators(
+        [G1Affine.generator()] * 4, _meta_points(4))).commit(_meta(16, 16)),
+    "Zeromorph.commit": lambda: Zeromorph(
+        KZGProverKey(_meta_points(17), 17), verifier_key(),
+        verifier_key().beta_g2).commit(_meta(16, 16)),
+}
+
+
+@pytest.mark.parametrize("name", _MSM_PATHS)
+def test_msm_paths_never_fall_back(name):
+    """The windowed MSM, Hyrax and Zeromorph hand tensors that are not on
+    the CPU to the kernels' checks (K1 first, then K5/K6/K7)."""
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        _MSM_PATHS[name]()
 
 
 def test_cli_inputs_follow_the_jax_cli():

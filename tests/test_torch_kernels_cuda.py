@@ -250,3 +250,67 @@ def test_jac_double_with_infinity(dev, n):
 def test_build_reports_each_library(dev):
     assert set(nat.build()) <= set(nat.SOURCES)
     assert all(nat.lib_path(s).exists() for s in nat.SOURCES)
+
+
+def _msm_inputs(N, rows, bits, seed):
+    """N generators (g * k, k from a seeded Random) with a repeated one,
+    and rows x N scalars below 2^bits, Montgomery, on the CPU."""
+    import random
+    rng = random.Random(seed)
+    g = G1Affine.generator().to_jacobian()
+    pts = [g.mul(rng.randrange(1, fr_spec().p)).to_affine() for _ in range(N)]
+    if N > 1:
+        pts[-1] = pts[0]                                 # doubling lanes
+    vals = [[rng.randrange(1 << bits) for _ in range(N)] for _ in range(rows)]
+    if N > 1:
+        for r in vals:
+            r[-1] = r[0]
+    return pts, vals
+
+
+@pytest.mark.parametrize("N,rows,bits", [(1, 1, 254), (37, 3, 254),
+                                         (256, 4, 63), (1024, 64, 63)])
+def test_windowed_msm_kernels_at_its_shapes(dev, N, rows, bits, monkeypatch):
+    """Every K6 and K7 call of a windowed MSM on the card (scan, bit
+    planes, Horner) against its plain version, and the MSMs against the
+    host's."""
+    from jolt_tpu_torch.curve import device as cd
+    from jolt_tpu_torch.curve.bn254 import g1_msm_host
+    pts, vals = _msm_inputs(N, rows, bits, seed=N)
+    calls = []
+
+    def record(name, kernel):
+        def wrapped(*args):
+            calls.append((name, args, kernel(*args)))
+            return calls[-1][2]
+        monkeypatch.setattr(cd, name, wrapped)
+
+    record("jac_add", cd.jac_add)
+    record("jac_double", cd.jac_double)
+    bases = tuple(fd.ints_to_device(fq_spec(), v, dev) for v in (
+        [p.x for p in pts], [p.y for p in pts], [1] * len(pts)))
+    got = cd.msm(bases, fd.ints_to_device(fr_spec(), vals, dev))
+    assert got == [g1_msm_host(pts, r) for r in vals]
+    assert {name for name, _, _ in calls} == {"jac_add", "jac_double"}
+    for name, args, out in calls:          # the plain versions, on the card
+        plain = ck.jac_add_plain(*args) if name == "jac_add" \
+            else ck.jac_double_plain(*args[0])
+        _equal(out, plain)
+
+
+def test_hyrax_commit_on_the_card_equals_the_cpu(dev):
+    """Generators and a commitment of 2^8 values below 2^63 (16 rows of
+    16): the card (K6, K7) and the CPU's plain versions agree."""
+    import numpy as np
+    from jolt_tpu_torch.commitment.hyrax import HyraxScheme
+    vals = np.random.default_rng(0).integers(1, 1 << 63, size=256,
+                                             dtype=np.uint64)
+    coms = []
+    for d in (dev, torch.device("cpu")):
+        pcs = HyraxScheme.setup(256, device=d)
+        before = (ck.JAC_ADD.launches, ck.JAC_DOUBLE.launches)
+        coms.append(pcs.commit(fd.u64_to_mont_device(fr_spec(), vals, d)))
+        if d.type == "cuda":
+            assert ck.JAC_ADD.launches > before[0]
+            assert ck.JAC_DOUBLE.launches > before[1]
+    assert coms[0].row_commitments == coms[1].row_commitments

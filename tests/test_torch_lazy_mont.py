@@ -38,6 +38,16 @@ M32 = (1 << 32) - 1
 R = 1 << 256
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tensors are small, and the
+    test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _words(x):
     return [(x >> (32 * k)) & M32 for k in range(8)]
 

@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from jolt_tpu.commitment import MockCommitmentScheme
 from jolt_tpu.commitment.hyperkzg import HyperKZGCommitment as JCommitment
@@ -43,6 +44,16 @@ from jolt_tpu_torch.utils.ark_proof import serialize_surge_proof
 
 JFR, JFQ = jfr_spec(), jfq_spec()
 C, M, N_OPS = 2, 16, 13
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tensors are small, and the
+    test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs():
