@@ -84,7 +84,35 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      the card and the CPU equal, HyperKZG's and Hyrax's row 0 equal to a
      host MSM, and jolt_tpu's frozen Zeromorph and Hyrax openings
      (fixtures/port/zeromorph_l6.npz, hyrax_l7.npz: transcripts,
-     commitments, proofs) reproduced on the card.
+     commitments, proofs) reproduced on the card;
+ 12. Quarks and the grand-product commit (launch counts set to 0 before
+     each part): B = 16 circuits of 2^20 leaves in [1, 2^63) from
+     default_rng(12) (one batch of memory-checking fingerprints of a
+     2^20-step trace, 1 GiB of leaves) through QuarkGrandProduct: four
+     dense GKR base layers and a quark top over 2^16 (16 sumcheck rounds,
+     35 polynomials), HyperKZG over the 2^16-point SRS fixture, the 16 g
+     commitments through BatchType.GRAND_PRODUCT (g_products: 16 K6
+     levels); one timed prove with the opening reduction (K1, K2, K3, K5
+     and K6 must launch; the largest call of each replayed), the claims
+     against BatchedDenseGrandProduct's, verify, a helper value bumped by
+     one refused, the canonical bytes read back; then the reference
+     bench's shape (benches/commit.rs): 2^20 coefficients, 90 % one, the
+     rest uniform from default_rng(13), with phase 3's SRS: g_products'
+     first build (20 K6 levels from 2^19 lanes) timed apart, warm commits
+     through GRAND_PRODUCT and BIG, which must be the same point (K1, K5,
+     K6 must launch; their largest calls replayed);
+ 13. the EVM verifier path (launch counts set to 0 before it): the four
+     fixture generators of evm/fixtures.py on the card (K1-K5 must
+     launch) must equal fixtures/evm/*.json field for field; the
+     generated R1CSMatrix.sol must equal
+     evm_verifier/src/subprotocols/R1CSMatrix.sol byte for byte; the
+     port's Solidity-subset VM executes GrandProductVerifier.verify,
+     HyperKZG.verify and SpartanVerifier.verifySpartan on the generated
+     fixtures, accepts them, and reverts on one tampered value each;
+ 14. the scaffold: `cli.py new` writes a guest and host project into a
+     temporary directory, and its host.py runs as __main__ in a child
+     process on the card (HyperKZG): it must print `proof verified`, and
+     K1-K5 must have launched in that process.
 Phase 1 also builds the native tracer and Keccak (g++) from their sources
 and prints the compiler and the libraries' paths.  Then a {"kernels":
 [...]} JSON line, the card line again, and last {"ok": true, "device":
@@ -97,6 +125,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import random
 import re
 import subprocess
@@ -130,6 +159,20 @@ VM_KERNELS = ("mont_mul", "mont_mul_bl", "gp_pair_evals", "gp_pair_bind",
 PCS_KERNELS = ("mont_mul", "proj_cadd", "jac_add", "jac_double")
 HYRAX_KERNELS = ("mont_mul", "jac_add", "jac_double")
 KZG_KERNELS = ("mont_mul", "proj_cadd")
+QUARK_B, QUARK_LOGN, QUARK_SRS = 16, 20, 1 << 16
+QUARK_KERNELS = ("mont_mul", "gp_pair_evals", "gp_pair_bind", "proj_cadd",
+                 "jac_add")
+GP_COMMIT_LOGN = 20
+GP_COMMIT_KERNELS = ("mont_mul", "proj_cadd", "jac_add")
+EVM_KERNELS = ("mont_mul", "mont_mul_bl", "gp_pair_evals", "gp_pair_bind",
+               "proj_cadd")
+# phase 14 runs the scaffold's host.py as __main__ in a child process and
+# prints that process's launch counts after it
+SCAFFOLD_RUNNER = (
+    "import json, runpy, sys; sys.path.insert(0, '.'); "
+    "from jolt_tpu_torch import _native as nat; "
+    "runpy.run_path('host.py', run_name='__main__'); "
+    "print('launches ' + json.dumps(nat.launch_counts()), flush=True)")
 
 
 def work(name: str, args) -> tuple[int, int]:
@@ -310,6 +353,16 @@ def main() -> None:
                                                  matrix_dimensions)
     from jolt_tpu_torch.commitment.mock import MockCommitmentScheme
     from jolt_tpu_torch.commitment.zeromorph import ZEROMORPH_SEED, Zeromorph
+    from jolt_tpu_torch.evm import fixtures as evm_fixtures
+    from jolt_tpu_torch.evm.gen_r1cs_sol import generate as gen_r1cs_sol
+    from jolt_tpu_torch.evm.solidity_vm import SolidityRevert, load_vm
+    from jolt_tpu_torch.poly.opening_proof import (
+        ProverOpeningAccumulator, VerifierOpeningAccumulator)
+    from jolt_tpu_torch.subprotocols.grand_product import \
+        BatchedDenseGrandProduct
+    from jolt_tpu_torch.subprotocols.grand_product_quarks import \
+        QuarkGrandProduct
+    from jolt_tpu_torch.utils import serialization as ser
     from jolt_tpu_torch.curve.bn254 import G1Affine, g1_msm_host
     from jolt_tpu_torch.poly import mle
     from jolt_tpu_torch.transcript import Transcript
@@ -1160,6 +1213,261 @@ def main() -> None:
           flush=True)
 
     phase_done("phase 11")
+
+    # -- phase 12: the Quarks hybrid grand product at full size -----------
+    # B = 16 circuits of 2^20 leaves (one batch of memory-checking
+    # fingerprints of a 2^20-step trace): four dense GKR base layers
+    # (2^20 -> 2^17 leaves) and a quark top over 2^16 (16 sumcheck rounds,
+    # 2B + 3 = 35 polynomials in the comb); HyperKZG over the 2^16-point
+    # SRS fixture, whose 16 g commitments take the GRAND_PRODUCT batch
+    # (g_products: K6 in 16 levels from 2^15 lanes)
+    vals12 = np.random.default_rng(12).integers(
+        1, 1 << 63, size=(QUARK_B, 1 << QUARK_LOGN), dtype=np.uint64)
+    largest12 = start_recording(by_batch=False)
+    nat.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    leaves12 = fd.u64_to_mont_device(FR, vals12, dev)
+    pcs12 = HyperKZG.setup(QUARK_SRS, device=dev)
+    gp12 = QuarkGrandProduct.construct(leaves12, FR)
+    claims12 = gp12.claims()
+    t12 = Transcript(b"quark")
+    pacc12 = ProverOpeningAccumulator(FR)
+    proof12, _ = gp12.prove_grand_product(pacc12, t12, pcs12)
+    reduced12 = pacc12.reduce_and_prove(pcs12, t12)
+    torch.cuda.synchronize()
+    prove12_s = time.perf_counter() - t0
+    peak12, held12 = (torch.cuda.max_memory_allocated() / 1e9,
+                      held_gb(largest12))
+    quark_counts = nat.launch_counts()
+    stop_recording()
+    del gp12
+    print(f"phase 12: Quarks hybrid B={QUARK_B} n=2^{QUARK_LOGN}: "
+          f"{len(proof12.layers)} GKR base layers, quark top of "
+          f"{proof12.quark.num_vars} sumcheck rounds; main-path launches "
+          f"{json.dumps(quark_counts)}", flush=True)
+    check_and_replay("phase 12", "quark", quark_counts, largest12,
+                     QUARK_KERNELS)
+    del largest12
+
+    def verify12(proof):
+        vt = Transcript(b"quark")
+        vacc = VerifierOpeningAccumulator(pcs12, FR)
+        QuarkGrandProduct.verify_grand_product(proof, claims12, vacc, vt, FR)
+        vacc.reduce_and_verify(pcs12, reduced12, vt)
+
+    t0 = time.perf_counter()
+    verify12(proof12)
+    verify12_s = time.perf_counter() - t0
+    w12 = ser.Writer()
+    ser.serialize_grand_product(w12, proof12)
+    bytes12 = w12.getvalue()
+    back12 = ser.deserialize_grand_product(ser.Reader(bytes12))
+    w12 = ser.Writer()
+    ser.serialize_grand_product(w12, back12)
+    if w12.getvalue() != bytes12:
+        fail("phase 12: the grand-product bytes do not read back "
+             "identically")
+    verify12(back12)
+    hv = back12.quark.helper_values[0]
+    hv[0] = hv[0] + FElt(1, FR)
+    try:
+        verify12(back12)
+    except VerificationError:
+        pass
+    else:
+        fail("phase 12: a quark proof with a helper value bumped by one "
+             "verified")
+    dense12 = BatchedDenseGrandProduct.construct(leaves12, FR).claims()
+    if [c.v for c in dense12] != [c.v for c in claims12]:
+        fail("phase 12: the hybrid's claims differ from the dense grand "
+             "product's")
+    del back12, dense12, leaves12, pcs12
+    torch.cuda.empty_cache()
+    print(f"phase 12: Quarks hybrid B={QUARK_B} n=2^{QUARK_LOGN} HyperKZG "
+          f"({QUARK_SRS} points): prove_s={prove12_s:.3f} (leaves to the "
+          f"card, setup, construct, claims, prove, opening reduction) "
+          f"verify_s={verify12_s:.3f} peak_mem_GB={peak12:.2f} (of which "
+          f"{held12:.2f} GB the recorded calls' copies); claims == the dense "
+          f"GKR's; {len(bytes12)} canonical bytes read back, verified, and "
+          f"refused with a helper value bumped by one [{card}]", flush=True)
+
+    # the reference bench's shape (benches/commit.rs:11-60): 2^20
+    # coefficients, 90 % of them one, the rest uniform field elements from
+    # default_rng(13), committed with phase 3's 2^20-point SRS through
+    # GRAND_PRODUCT and through BIG
+    ng = 1 << GP_COMMIT_LOGN
+    rng13 = np.random.default_rng(13)
+    ones13 = rng13.random(ng) < 0.9
+    limbs13 = rng13.integers(0, 1 << 16, size=(16, ng), dtype=np.int64)
+    limbs13[15] = rng13.integers(0, int(FR.p_limbs[15]), size=ng)
+    limbs13[:, ones13] = 0
+    limbs13[0, ones13] = 1
+    poly13 = fd.to_mont_device(
+        FR, torch.from_numpy(limbs13.astype(np.int32)).to(dev))
+    largest13 = start_recording(by_batch=False)
+    nat.reset_launch_counts()
+    gprod13, gprod13_s = timed(pcs.pk.g_products)
+    gprod_counts = nat.launch_counts()
+    pcs.batch_commit([poly13], BatchType.GRAND_PRODUCT)        # warm-up
+    com_gp, gp13_s = timed(lambda: pcs.batch_commit(
+        [poly13], BatchType.GRAND_PRODUCT)[0])
+    pcs.batch_commit([poly13], BatchType.BIG)
+    com_big, big13_s = timed(lambda: pcs.batch_commit(
+        [poly13], BatchType.BIG)[0])
+    gpc_counts = nat.launch_counts()
+    stop_recording()
+    if com_gp != com_big:
+        fail("phase 12: the GRAND_PRODUCT and BIG commitments of the "
+             "90 %-ones polynomial differ")
+    if len(gprod13) != GP_COMMIT_LOGN + 1 or gprod_counts["jac_add"] != \
+            GP_COMMIT_LOGN:
+        fail(f"phase 12: g_products took {gprod_counts['jac_add']} K6 "
+             f"launches for {len(gprod13)} sums, not {GP_COMMIT_LOGN}")
+    print(f"phase 12: 90 %-ones 2^{GP_COMMIT_LOGN} commit ({int(ones13.sum())} "
+          f"ones): g_products first build {gprod13_s:.4f} s "
+          f"({gprod_counts['jac_add']} K6 levels from 2^{GP_COMMIT_LOGN - 1} "
+          f"lanes); warm commit GRAND_PRODUCT {gp13_s:.4f} s, BIG "
+          f"{big13_s:.4f} s; the two points are equal; launches "
+          f"{json.dumps(gpc_counts)} [{card}]", flush=True)
+    check_and_replay("phase 12", "GP commit", gpc_counts, largest13,
+                     GP_COMMIT_KERNELS)
+    del largest13, poly13, limbs13
+
+    phase_done("phase 12")
+
+    # -- phase 13: the EVM verifier path ----------------------------------
+    nat.reset_launch_counts()
+    t0 = time.perf_counter()
+    evm_fx = evm_fixtures.generate_all(dev)
+    evm_counts = nat.launch_counts()
+    gen13_s = time.perf_counter() - t0
+    for name, got in evm_fx.items():
+        want = json.loads((ROOT / "fixtures" / "evm" / f"{name}.json")
+                          .read_text())
+        if got != want:
+            fail(f"phase 13: the {name} fixture differs from "
+                 f"fixtures/evm/{name}.json")
+    missing = [k for k in EVM_KERNELS if evm_counts[k] <= 0]
+    if missing:
+        fail(f"phase 13: kernels of the fixture generators never launched: "
+             f"{missing}")
+    sol_dir = ROOT / "evm_verifier" / "src" / "subprotocols"
+    with tempfile.TemporaryDirectory() as td:
+        src13 = gen_r1cs_sol(str(Path(td) / "R1CSMatrix.sol"))
+    if src13 != (sol_dir / "R1CSMatrix.sol").read_text():
+        fail("phase 13: the generated R1CSMatrix.sol differs from "
+             "evm_verifier/src/subprotocols/R1CSMatrix.sol")
+    print(f"phase 13: the four EVM fixtures generated on the card in "
+          f"{gen13_s:.2f} s == fixtures/evm/*.json; launches "
+          f"{json.dumps(evm_counts)}; R1CSMatrix.sol generated == the "
+          f"committed file ({len(src13)} bytes)", flush=True)
+    t0 = time.perf_counter()
+    svm = load_vm(str(sol_dir))
+    sol_t = lambda: svm.call("FiatShamirTranscript.newTranscript",
+                             b"test_transcript".ljust(32, b"\x00"))
+    sumcheck = lambda rounds: svm.make_struct(
+        "SumcheckVerifier.SumcheckProof", rounds=[svm.make_struct(
+            "SumcheckVerifier.CompressedUniPoly",
+            coeffsExceptLinear=[svm.fr(int(c, 16)) for c in r])
+            for r in rounds])
+
+    def sol_gp(fx, bump):
+        layers = []
+        for i, lay in enumerate(fx["layers"]):
+            left = [int(c, 16) for c in lay["left_claims"]]
+            if bump and i == 1:
+                left[0] = (left[0] + 1) % FR.p
+            layers.append(svm.make_struct(
+                "GrandProductVerifier.LayerProof",
+                sumcheck=sumcheck(lay["sumcheck"]),
+                leftClaims=[svm.fr(c) for c in left],
+                rightClaims=[svm.fr(int(c, 16))
+                             for c in lay["right_claims"]]))
+        return (svm.make_struct("GrandProductVerifier.GrandProductProof",
+                                layers=layers),
+                [svm.fr(int(c, 16)) for c in fx["claims"]], sol_t())
+
+    g1p = lambda d: svm.make_struct("HyperKZG.G1Point", x=int(d["x"], 16),
+                                    y=int(d["y"], 16))
+    g2p = lambda d: svm.make_struct(     # imaginary part first
+        "HyperKZG.G2Point", x=[int(d["x"][1], 16), int(d["x"][0], 16)],
+        y=[int(d["y"][1], 16), int(d["y"][0], 16)])
+
+    def sol_hyperkzg(fx, bump):
+        vk = svm.make_struct("HyperKZG.VerifierKey", g1=g1p(fx["vk"]["g1"]),
+                             g2=g2p(fx["vk"]["g2"]),
+                             betaG2=g2p(fx["vk"]["beta_g2"]))
+        proof = svm.make_struct(
+            "HyperKZG.HyperKZGProof",
+            com=[g1p(p) for p in fx["proof"]["com"]],
+            w=[g1p(p) for p in fx["proof"]["w"]],
+            v=[svm.fr(int(x, 16)) for row in fx["proof"]["v"] for x in row])
+        y = (int(fx["opening"], 16) + bump) % FR.p
+        return (proof, vk, sol_t(), [svm.fr(int(x, 16)) for x in fx["point"]],
+                svm.fr(y), g1p(fx["commitment"]))
+
+    def sol_spartan(fx, bump):
+        evals = [int(c, 16) for c in fx["claimed_witness_evals"]]
+        evals[3] = (evals[3] + bump) % FR.p
+        az, bz, cz = (svm.fr(int(c, 16)) for c in fx["outer_claims"])
+        proof = svm.make_struct(
+            "SpartanVerifier.SpartanProof",
+            outer=sumcheck(fx["outer_sumcheck"]), outerClaimAz=az,
+            outerClaimBz=bz, outerClaimCz=cz,
+            inner=sumcheck(fx["inner_sumcheck"]),
+            claimedWitnessEvals=[svm.fr(v) for v in evals])
+        return proof, fx["steps_bits"], sol_t()
+
+    for fn, name, build in (
+            ("GrandProductVerifier.verify", "grand_product", sol_gp),
+            ("HyperKZG.verify", "hyperkzg", sol_hyperkzg),
+            ("SpartanVerifier.verifySpartan", "spartan", sol_spartan)):
+        out = svm.call(fn, *build(evm_fx[name], 0))
+        if name == "grand_product" and [x.val for x in out[1]] != \
+                [int(v, 16) for v in evm_fx[name]["r_grand_product"]]:
+            fail("phase 13: GrandProductVerifier.sol's point differs from "
+                 "the fixture's")
+        try:
+            svm.call(fn, *build(evm_fx[name], 1))
+        except SolidityRevert:
+            pass
+        else:
+            fail(f"phase 13: {fn} accepted a tampered {name} fixture")
+    print(f"phase 13: the Solidity VM executes GrandProductVerifier.verify, "
+          f"HyperKZG.verify and SpartanVerifier.verifySpartan on the "
+          f"generated fixtures: accepted, and reverted on one tampered value "
+          f"each ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    phase_done("phase 13")
+
+    # -- phase 14: the scaffold: cli.py new, then its host.py on the card -
+    with tempfile.TemporaryDirectory() as td:
+        proj = Path(td) / "fib_project"
+        cli.main(["new", str(proj), "--pcs", "hyperkzg"])
+        t0 = time.perf_counter()
+        run14 = subprocess.run([sys.executable, "-c", SCAFFOLD_RUNNER],
+                               cwd=proj, capture_output=True, text=True,
+                               env={**os.environ, "PYTHONPATH": str(ROOT)},
+                               timeout=300)
+        host14_s = time.perf_counter() - t0
+    out14 = run14.stdout.splitlines()
+    if run14.returncode != 0 or "proof verified" not in out14:
+        fail(f"phase 14: the scaffold's host.py failed (rc "
+             f"{run14.returncode}): {run14.stdout[-2000:]} "
+             f"{run14.stderr[-2000:]}")
+    scaffold_counts = json.loads(out14[-1].split(" ", 1)[1])
+    missing = [k for k in VM_KERNELS if scaffold_counts.get(k, 0) <= 0]
+    if missing:
+        fail(f"phase 14: kernels of the scaffold's prove never launched: "
+             f"{missing}")
+    print(f"phase 14: cli.py new wrote guest.py, host.py, README.md; "
+          f"python host.py (HyperKZG, on the card) printed "
+          f"{' / '.join(out14[:-1])} in {host14_s:.2f} s (a new process: "
+          f"imports, SRS, preprocessing, prove, verify); its launches "
+          f"{json.dumps(scaffold_counts)}", flush=True)
+
+    phase_done("phase 14")
     print(f"phase wall seconds {json.dumps(walls)}, total "
           f"{sum(walls.values()):.1f}", flush=True)
 
@@ -1186,14 +1494,20 @@ def main() -> None:
             "launches_per_sha3_prove": sha3_prove_counts[k.name],
             "launches_pcs_path": pcs_counts[k.name],
             "launches_pcs_by_scheme": {name: r["launches"][k.name]
-                                       for name, r in pcs_rows.items()}}
+                                       for name, r in pcs_rows.items()},
+            "launches_quark_path": quark_counts[k.name],
+            "launches_gp_commit_path": gpc_counts[k.name],
+            "launches_evm_fixtures": evm_counts[k.name],
+            "launches_scaffold_prove": scaffold_counts.get(k.name, 0)}
         row.update(usage[k.name])
         if k.name in more:
             row["more_shapes"] = more[k.name]
         for ph, key in ((f"phase 6 fib({FIB_N})", "at_fib_shape"),
                         (f"phase 8 sha2-chain({SHA2_ITERS})",
                          "at_sha2_shape"),
-                        (f"phase 10 {label10}", "at_sha3_shape")):
+                        (f"phase 10 {label10}", "at_sha3_shape"),
+                        ("phase 12 quark", "at_quark_shape"),
+                        ("phase 12 GP commit", "at_gp_commit_shape")):
             if ph in results[k.name]:
                 row[key] = results[k.name][ph]
         pcs_calls = [results[k.name][ph] for ph in

@@ -11,6 +11,7 @@
     python -m jolt_tpu_torch.cli analyze [--guest sha2-chain] [--n 1]
     python -m jolt_tpu_torch.cli pcs-bench [--pcs hyperkzg|zeromorph|hyrax]
         [--logn 12] [--device cuda|cpu]
+    python -m jolt_tpu_torch.cli new NAME [--pcs mock|hyperkzg]
 
 `surge-bench` is the fork's headline benchmark (bench.rs:109-210), as
 jolt_tpu's `cli.py surge-bench` runs it: Surge XOR lookups with C = 4,
@@ -28,13 +29,18 @@ rv32i_vm() and checks its output against the guest's host oracle;
 polynomial (benches/pcs_bench.rs; jolt_tpu's cli.py:85-114): values below
 2^63 from default_rng(0), one commit with its first-call costs, then a
 warm one; its JSON line adds the peak device memory and the SHA-256 of the
-commitment's points (x || y, as convert.py writes them).
+commitment's points (x || y, as convert.py writes them).  `new` scaffolds
+a guest and host project (the reference's `jolt new`, src/main.rs:48-100;
+jolt_tpu's cli.py:327-414): guest.py, host.py and README.md in a new
+directory NAME; `python host.py` there proves and verifies the guest
+through `sdk.build_provable`, on the card.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import json
+import os
 import time
 
 import numpy as np
@@ -272,6 +278,85 @@ def pcs_bench(pcs_name: str = "hyperkzg", logn: int = 12, device=None
             "device": device_name(dev)}
 
 
+_GUEST_TEMPLATE = '''\
+"""Guest program for {name} — RV32IM via the jolt_tpu_torch mini-assembler.
+
+The reference's `jolt new` scaffolds a Rust guest crate with a
+`#[jolt::provable]` fn (src/main.rs:48-100); here the guest is an
+assembled RV32IM program.  Raw ELF bytes (any RV32IM toolchain output)
+work too — pass them straight to build_provable.
+"""
+from jolt_tpu_torch.vm.host import Assembler
+
+
+def program(n: int = 8):
+    """fib(n): result left in x2."""
+    asm = Assembler()
+    asm.addi(2, 0, 0)   # a = 0
+    asm.addi(3, 0, 1)   # b = 1
+    asm.addi(1, 0, 0)   # i = 0
+    asm.addi(4, 0, n)   # n
+    asm.label("loop")
+    asm.add(5, 2, 3)    # t = a + b
+    asm.add(2, 3, 0)    # a = b
+    asm.add(3, 5, 0)    # b = t
+    asm.addi(1, 1, 1)   # i += 1
+    asm.bne(1, 4, "loop")
+    asm.label("halt")
+    asm.jal(0, "halt")  # PC repeat => trace termination
+    return asm.finish()
+'''
+
+_HOST_TEMPLATE = '''\
+"""Host for {name}: build, prove, verify (the reference host crate's
+main.rs analog — macro output shape per jolt-sdk/macros/src/lib.rs:89-131).
+"""
+from jolt_tpu_torch.sdk import build_provable
+
+from guest import program
+
+
+def main():
+    prove, verify = build_provable(program(), pcs="{pcs}")
+    outputs, artifacts = prove(b"")
+    print(f"trace length: {{artifacts.trace_length}}")
+    assert verify(artifacts), "proof rejected"
+    print("proof verified")
+
+
+if __name__ == "__main__":
+    main()
+'''
+
+_README_TEMPLATE = '''\
+# {name}
+
+A jolt_tpu_torch guest/host project (scaffolded by `python -m jolt_tpu_torch.cli new`).
+
+- `guest.py` — the RV32IM guest program (mini-assembler; raw ELF bytes from
+  any RV32IM toolchain also work).
+- `host.py` — proves and verifies one execution:
+
+      python host.py
+'''
+
+SCAFFOLD = {"guest.py": _GUEST_TEMPLATE, "host.py": _HOST_TEMPLATE,
+            "README.md": _README_TEMPLATE}
+
+
+def new_project(path: str, pcs: str = "hyperkzg") -> list[str]:
+    """Write the guest and host project into the new directory `path`;
+    returns the files written.  Refuses a path that exists."""
+    if os.path.exists(path):
+        raise SystemExit(f"{path!r} already exists")
+    os.makedirs(path)
+    ctx = {"name": os.path.basename(os.path.normpath(path)), "pcs": pcs}
+    for fname, template in SCAFFOLD.items():
+        with open(os.path.join(path, fname), "w") as f:
+            f.write(template.format(**ctx))
+    return list(SCAFFOLD)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m jolt_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -307,7 +392,14 @@ def main(argv=None) -> None:
     pb.add_argument("--pcs", choices=tuple(PCS), default="hyperkzg")
     pb.add_argument("--logn", type=int, default=12)
     pb.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    nw = sub.add_parser("new", help="scaffold a guest and host project")
+    nw.add_argument("name")
+    nw.add_argument("--pcs", choices=("mock", "hyperkzg"), default="hyperkzg")
     args = ap.parse_args(argv)
+    if args.cmd == "new":
+        files = new_project(args.name, args.pcs)
+        print(f"created {args.name}/: {' '.join(files)}", flush=True)
+        return
     if args.cmd == "pcs-bench":
         print(json.dumps(pcs_bench(args.pcs, args.logn, device=args.device)),
               flush=True)

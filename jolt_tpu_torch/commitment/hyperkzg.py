@@ -31,8 +31,8 @@ from ..subprotocols.sumcheck import VerificationError
 from ..transcript import Transcript
 from .base import BatchType
 from .kzg import (SRS_SEED, KZGProverKey, KZGVerifierKey, _powers_device,
-                  kzg_commit, kzg_commit_batch, kzg_quotient, srs_setup,
-                  verifier_key)
+                  kzg_commit, kzg_commit_batch, kzg_commit_grand_product,
+                  kzg_quotient, srs_setup, verifier_key)
 
 
 @dataclass
@@ -77,9 +77,15 @@ class HyperKZG:
     def batch_commit(self, polys: Sequence[torch.Tensor],
                      batch_type: BatchType = BatchType.BIG
                      ) -> list[HyperKZGCommitment]:
-        """Commitments to Montgomery Fr vectors [16, n].  Every batch type
-        commits the same points; the reference's GrandProduct shortcut
-        (kzg.rs:223-256) changes only how fast, not what."""
+        """Commitments to Montgomery Fr vectors [16, n].  GrandProduct
+        batches take the mostly-ones shortcut (hyperkzg.rs:554-566 ->
+        kzg.rs:223-256; jolt_tpu/commitment/hyperkzg.py:106-108): the sum
+        of the SRS prefix plus the MSM of coeffs - 1, each polynomial
+        apart; every other batch type shares one bitplane fold.  Both
+        give the same points."""
+        if batch_type == BatchType.GRAND_PRODUCT:
+            return [HyperKZGCommitment(kzg_commit_grand_product(self.pk, p))
+                    for p in polys]
         return [HyperKZGCommitment(p)
                 for p in kzg_commit_batch(self.pk, list(polys))]
 

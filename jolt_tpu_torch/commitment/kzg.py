@@ -10,6 +10,10 @@ pairing check.
   gather and a log-depth tree of Jacobian adds (K6).  It never writes into
   `fixtures/`.
 * commit = the bitplane batch MSM over the SRS prefix (curve/device.py).
+  A grand product's leaves are mostly ones, so their commit is the sum of
+  the first n SRS points (`KZGProverKey.g_products`, a tree of Jacobian
+  adds, K6) plus the MSM of the residual coeffs - 1 (kzg.rs:223-256): the
+  same point as the plain commit.
 * open(B, u): the quotient q = (B - B(u)) / (X - u) without a sequential
   synthetic division: q[j] = u^{-(j+1)} * sum_{i > j} b_i u^i, two power
   tables and one suffix sum on the device.
@@ -20,7 +24,7 @@ from __future__ import annotations
 import functools
 import random
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +47,15 @@ SRS_CHUNK = 1 << 18   # points per generation pass (bounds [16, 32, chunk])
 class KZGProverKey:
     g1_jac: tuple  # (X, Y, Z) device limb tensors [16, N] -- g * tau^i
     n: int
+    _g_products: list | None = field(default=None, repr=False)
+
+    def g_products(self) -> list[G1Jacobian]:
+        """[sum(g1[:2^k]) for k in 0..log2(N)], the commitments of the
+        all-ones vectors (kzg.rs:66-77), built at the first call from the
+        whole key, as jolt_tpu builds them (kzg.py:41-48)."""
+        if self._g_products is None:
+            self._g_products = _compute_g_products(self.g1_jac, self.n)
+        return self._g_products
 
 
 @dataclass
@@ -184,6 +197,43 @@ def _msm_jac(points_jac, scalars_mont: torch.Tensor) -> G1Affine:
     n = scalars_mont.shape[-1]
     return cd.batch_msm_bitplane(tuple(t[:, :n] for t in points_jac),
                                  [scalars_mont])[0]
+
+
+def _point_tree_level(P):
+    """One level of pairwise Jacobian adds (K6): out[i] = P[2i] + P[2i+1]."""
+    return cd.jac_add(tuple(t[:, 0::2].contiguous() for t in P),
+                      tuple(t[:, 1::2].contiguous() for t in P))
+
+
+def _compute_g_products(g1_jac, n: int) -> list[G1Jacobian]:
+    """[sum(g1[:2^k]) for k in 0..log2(n)] from one sweep of pairwise
+    reductions: after j halvings, element 0 is the sum of the first 2^j
+    points.  The element-0 columns are pulled to the host together."""
+    k_max = n.bit_length() - 1
+    P = tuple(t[:, :1 << k_max] for t in g1_jac)
+    firsts = [tuple(t[:, :1] for t in P)]
+    for _ in range(k_max):
+        P = _point_tree_level(P)
+        firsts.append(tuple(t[:, :1] for t in P))
+    return cd.jacobian_to_host(*(torch.cat([f[i] for f in firsts], dim=1)
+                                 for i in range(3)))
+
+
+def kzg_commit_grand_product(pk: KZGProverKey, coeffs_mont: torch.Tensor
+                             ) -> G1Affine:
+    """CommitMode::GrandProduct (kzg.rs:137-144, 223-256;
+    jolt_tpu/commitment/kzg.py:243-258): g_products[log2 n] plus the MSM
+    (K5) of the residual coeffs - 1, where one is R mod p in Montgomery
+    form.  The same point as kzg_commit; a length that is not a power of
+    two goes to kzg_commit."""
+    n = coeffs_mont.shape[-1]
+    if n & (n - 1):
+        return kzg_commit(pk, coeffs_mont)
+    residual = fd.fsub(FR, coeffs_mont,
+                       fd.ones(FR, (n,), coeffs_mont.device))
+    msm_part = _msm_jac(pk.g1_jac, residual)
+    total = pk.g_products()[n.bit_length() - 1].add(msm_part.to_jacobian())
+    return total.to_affine()
 
 
 def kzg_commit_batch(pk: KZGProverKey, polys: list) -> list[G1Affine]:

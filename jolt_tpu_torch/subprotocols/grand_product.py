@@ -48,11 +48,20 @@ class BatchedGrandProductLayerProof:
 @dataclass
 class BatchedGrandProductProof:
     layers: list[BatchedGrandProductLayerProof]
+    quark: object | None = None  # QuarkGrandProductProof in the hybrid scheme
 
 
 # ---------------------------------------------------------------------------
 # device layers
 # ---------------------------------------------------------------------------
+
+def _tree_level(spec: FieldSpec, layer: torch.Tensor) -> torch.Tensor:
+    """One product-tree level over an INTERLEAVED [16, B, n] layer:
+    out[i] = layer[2i] * layer[2i+1] (K1; the strided halves are copied
+    into contiguous operands by its wrapper).  The Quarks construction's
+    path only: the GKR prover keeps the bit-reversed pairs below."""
+    return fd.fmul(spec, layer[..., 0::2], layer[..., 1::2])
+
 
 def _interleaved_to_pair(spec: FieldSpec, leaves: torch.Tensor):
     """Interleaved leaves [16, B, n] -> bit-reversed batch-leading pair

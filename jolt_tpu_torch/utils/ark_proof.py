@@ -88,7 +88,11 @@ def _w_sumcheck(out, proof) -> None:
 
 def _w_gp_proof(out, proof) -> None:
     """BatchedGrandProductProof: Vec<layer> + Option<quark> (None: the
-    dense and toggled provers emit no quark hybrid)."""
+    dense and toggled provers emit no quark hybrid).  A quark hybrid is
+    refused, as jolt_tpu/utils/ark_proof.py:105-106 refuses it."""
+    if proof.quark is not None:
+        raise ValueError("the quark hybrid grand product has no arkworks "
+                         "encoding here (the VM's provers emit none)")
     _w_u64(out, len(proof.layers))
     for lay in proof.layers:
         _w_sumcheck(out, lay.proof)

@@ -115,9 +115,18 @@ def serialize_grand_product(w: Writer, proof) -> None:
         serialize_sumcheck(w, layer.proof)
         w.felts(layer.left_claims)
         w.felts(layer.right_claims)
-    # the quark option: None on the VM's path (grand_product.rs:37-41); the
-    # port has no quark grand product
-    w.u64(0)
+    # the quark option (None on the VM's path, grand_product.rs:37-41)
+    q = proof.quark
+    w.u64(0 if q is None else 1)
+    if q is not None:
+        serialize_sumcheck(w, q.sumcheck_proof)
+        w.points([c.point for c in q.g_commitment])
+        w.felts(q.claimed_eval_g_r)
+        w.felts(q.claimed_eval_g_r_x[0])
+        w.felts(q.claimed_eval_g_r_x[1])
+        w.felts(q.helper_values[0])
+        w.felts(q.helper_values[1])
+        w.u64(q.num_vars)
 
 
 def deserialize_grand_product(r: Reader):
@@ -128,8 +137,17 @@ def deserialize_grand_product(r: Reader):
         sp = deserialize_sumcheck(r)
         layers.append(BatchedGrandProductLayerProof(sp, r.felts(),
                                                     r.felts()))
-    r.absent("quark grand product")
-    return BatchedGrandProductProof(layers)
+    quark = None
+    if r.u64():
+        from ..commitment.hyperkzg import HyperKZGCommitment
+        from ..subprotocols.grand_product_quarks import QuarkGrandProductProof
+        sp = deserialize_sumcheck(r)
+        g_com = [HyperKZGCommitment(p) for p in r.points()]
+        g_r = r.felts()
+        g_r_x = (r.felts(), r.felts())
+        helper = (r.felts(), r.felts())
+        quark = QuarkGrandProductProof(sp, g_com, g_r, g_r_x, helper, r.u64())
+    return BatchedGrandProductProof(layers, quark)
 
 
 def proof_size_bytes(obj) -> int:

@@ -851,5 +851,8 @@ def spartan_verify(proof: UniformSpartanProof, key: UniformSpartanKey,
     if claim_inner_final != left * eval_z:
         raise VerificationError("Spartan inner sumcheck claim invalid")
 
-    opening_accumulator.append(commitments, r_inner[n_prefix:],
-                               proof.claimed_witness_evals, transcript)
+    # commitments None: Spartan checked alone (the EVM fixture), as
+    # jolt_tpu/vm/r1cs.py:875 allows
+    if commitments is not None:
+        opening_accumulator.append(commitments, r_inner[n_prefix:],
+                                   proof.claimed_witness_evals, transcript)

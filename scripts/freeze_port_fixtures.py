@@ -38,6 +38,10 @@ jolt_tpu on the CPU and written to `fixtures/port/<case>.npz`:
                    (both cases: jolt_tpu_torch/commitment/fixtures.py;
                    run with JOLT_TPU_SRS_CACHE=0, which this script sets,
                    so that jolt_tpu writes no SRS into fixtures/srs/)
+    quark_hyperkzg the Quarks hybrid grand product (B = 2, 2^6 leaves) with
+                   HyperKZG over a 2^8-point SRS: transcript, g commitments
+                   and the canonical bytes of the grand-product proof
+                   (jolt_tpu_torch/subprotocols/fixtures.py)
     fib3_proof_bytes   the three fib3 proofs' `proof_size_bytes`, and the
                        HyperKZG one's canonical and arkworks bytes (SHA-256
                        and length), as fixtures/port/fib3_proof_bytes.json
@@ -328,6 +332,40 @@ def prove_pcs_case(case: str) -> dict:
     return out
 
 
+def prove_quark_case() -> dict:
+    """jolt_tpu's Quarks hybrid proof of the case of
+    jolt_tpu_torch/subprotocols/fixtures.py, verified by jolt_tpu, as that
+    module's arrays."""
+    import jax.numpy as jnp
+    from jolt_tpu.commitment.hyperkzg import HyperKZG
+    from jolt_tpu.field import device as jfd
+    from jolt_tpu.field import fr_spec
+    from jolt_tpu.poly.opening_proof import (ProverOpeningAccumulator,
+                                             VerifierOpeningAccumulator)
+    from jolt_tpu.subprotocols.grand_product_quarks import QuarkGrandProduct
+    from jolt_tpu.transcript import Transcript
+    from jolt_tpu.utils.serialization import Writer, serialize_grand_product
+    from jolt_tpu_torch.subprotocols import fixtures as sfx
+
+    spec = fr_spec()
+    leaves = jfd.to_mont_device(spec, jnp.asarray(
+        jfd.pack_u64(sfx.quark_leaves_u64())))
+    pcs = HyperKZG.setup(sfx.QUARK_SRS_LEN)
+    gp = QuarkGrandProduct.construct(leaves, spec)
+    claims = gp.claims()
+    t = Transcript(sfx.QUARK_LABEL)
+    acc = ProverOpeningAccumulator(spec)
+    proof, _ = gp.prove_grand_product(acc, t, pcs)
+    reduced = acc.reduce_and_prove(pcs, t)
+    vt = Transcript(sfx.QUARK_LABEL)
+    vacc = VerifierOpeningAccumulator(pcs, spec)
+    QuarkGrandProduct.verify_grand_product(proof, claims, vacc, vt, spec)
+    vacc.reduce_and_verify(pcs, reduced, vt)
+    w = Writer()
+    serialize_grand_product(w, proof)
+    return sfx.quark_arrays(t, proof, w.getvalue())
+
+
 def main(argv=None) -> None:
     os.environ["JOLT_TPU_SRS_CACHE"] = "0"   # write nothing into fixtures/srs
     import jax
@@ -336,6 +374,7 @@ def main(argv=None) -> None:
     names = [f"fib3_{c}" for c in CASES] + ["narrow_mock", *fx.RV32I_CASES,
                                             *fx.RV32I_HYPERKZG_CASES,
                                             *PCS_CASES, "jolt_parts",
+                                            "quark_hyperkzg",
                                             "fib3_proof_bytes"]
     chosen = list(argv if argv is not None else sys.argv[1:]) or names
     for name in chosen:
@@ -352,6 +391,8 @@ def main(argv=None) -> None:
             arrays = prove_pcs_case(name)
         elif name == "jolt_parts":
             arrays = jolt_parts_arrays()
+        elif name == "quark_hyperkzg":
+            arrays = prove_quark_case()
         elif name.startswith("fib3_"):
             arrays = prove_case(name[len("fib3_"):])
         else:

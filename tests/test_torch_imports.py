@@ -8,7 +8,8 @@ to the CPU.
 - an entry point called with no CUDA card and no device="cpu" raises;
 - a kernel wrapper handed tensors that are not on the CPU launches its
   kernel or raises: it never runs its plain version instead, and neither
-  do the windowed MSM, Hyrax or Zeromorph.
+  do the windowed MSM, Hyrax, Zeromorph, the grand-product commit or the
+  Quarks product tree.
 """
 import re
 import subprocess
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from jolt_tpu_torch import cli, sdk
+from jolt_tpu_torch.commitment.base import BatchType
 from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
 from jolt_tpu_torch.commitment.hyrax import HyraxScheme, PedersenGenerators
 from jolt_tpu_torch.commitment.kzg import KZGProverKey, verifier_key
@@ -28,10 +30,12 @@ from jolt_tpu_torch.commitment.zeromorph import Zeromorph
 from jolt_tpu_torch.curve import device as cd
 from jolt_tpu_torch.curve import kernels as ck
 from jolt_tpu_torch.curve.bn254 import G1Affine
+from jolt_tpu_torch.evm import fixtures as evm_fixtures
 from jolt_tpu_torch.field import kernels as fk
 from jolt_tpu_torch.field.spec import fr_spec
 from jolt_tpu_torch.instructions import XorInstruction
 from jolt_tpu_torch.lasso import SurgePreprocessing
+from jolt_tpu_torch.subprotocols.grand_product_quarks import QuarkGrandProduct
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "jolt_tpu_torch"
@@ -49,7 +53,10 @@ need = {"jolt_tpu_torch.sdk", "jolt_tpu_torch.native",
         "jolt_tpu_torch.utils.ark_proof", "jolt_tpu_torch.utils.ark_serialize",
         "jolt_tpu_torch.commitment.zeromorph",
         "jolt_tpu_torch.commitment.hyrax",
-        "jolt_tpu_torch.commitment.fixtures", "jolt_tpu_torch.convert"}
+        "jolt_tpu_torch.commitment.fixtures", "jolt_tpu_torch.convert",
+        "jolt_tpu_torch.subprotocols.grand_product_quarks",
+        "jolt_tpu_torch.subprotocols.fixtures", "jolt_tpu_torch.evm.fixtures",
+        "jolt_tpu_torch.evm.gen_r1cs_sol", "jolt_tpu_torch.evm.solidity_vm"}
 bad += sorted(f"not imported: {m}" for m in need - set(sys.modules))
 print(len([m for m in sys.modules if m.startswith("jolt_tpu_torch")]))
 sys.exit("loaded: " + ", ".join(bad) if bad else 0)
@@ -107,6 +114,10 @@ _ENTRY_POINTS = {
     "HyraxScheme.setup": lambda: HyraxScheme.setup(16),
     "cli.pcs_bench": lambda: cli.pcs_bench("hyrax", 4),
     "cli.main pcs-bench": lambda: cli.main(["pcs-bench", "--logn", "4"]),
+    "evm grand_product_fixture": lambda: evm_fixtures.grand_product_fixture(),
+    "evm hyperkzg_fixture": lambda: evm_fixtures.hyperkzg_fixture(),
+    "evm spartan_fixture": lambda: evm_fixtures.spartan_fixture(),
+    "evm write_fixtures": lambda: evm_fixtures.write_fixtures("unused"),
 }
 
 
@@ -161,13 +172,21 @@ _MSM_PATHS = {
     "Zeromorph.commit": lambda: Zeromorph(
         KZGProverKey(_meta_points(17), 17), verifier_key(),
         verifier_key().beta_g2).commit(_meta(16, 16)),
+    "KZGProverKey.g_products": lambda: KZGProverKey(
+        _meta_points(16), 16).g_products(),
+    "HyperKZG GRAND_PRODUCT commit": lambda: HyperKZG(
+        KZGProverKey(_meta_points(16), 16), verifier_key()).batch_commit(
+        [_meta(16, 16)], BatchType.GRAND_PRODUCT),
+    "QuarkGrandProduct.construct": lambda: QuarkGrandProduct.construct(
+        _meta(16, 2, 64)),
 }
 
 
 @pytest.mark.parametrize("name", _MSM_PATHS)
 def test_msm_paths_never_fall_back(name):
-    """The windowed MSM, Hyrax and Zeromorph hand tensors that are not on
-    the CPU to the kernels' checks (K1 first, then K5/K6/K7)."""
+    """The windowed MSM, Hyrax, Zeromorph, the grand-product commit and the
+    Quarks product tree hand tensors that are not on the CPU to the
+    kernels' checks (K1 first, then K5/K6/K7)."""
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         _MSM_PATHS[name]()
 

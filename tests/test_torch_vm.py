@@ -212,3 +212,37 @@ def test_proof_read_back_verifies_and_rejects_a_bumped_opening(fib3):
         ser.deserialize_jolt_proof_with_commitments(data[:-1])
     with pytest.raises(ValueError, match="trailing"):
         ser.deserialize_jolt_proof_with_commitments(data + b"\x00")
+
+
+@pytest.mark.parametrize("fib3", ["hyperkzg"], indirect=True)
+def test_jolt_tpus_verifier_accepts_the_ports_proof(fib3):
+    """jolt_tpu's JoltVM.verify (vm/jolt.py:302), with jolt_tpu's own
+    preprocessing of the same mini VM (M = 2^8, a 2^8-point SRS), accepts
+    the proof it reads from the port's canonical bytes, and rejects it
+    with the output opening bumped by one."""
+    from jolt_tpu.commitment.hyperkzg import HyperKZG as JHyperKZG
+    from jolt_tpu.field import FElt as JFElt
+    from jolt_tpu.field import fr_spec as jfr_spec
+    from jolt_tpu.instructions import AddInstruction, BneInstruction
+    from jolt_tpu.subprotocols.sumcheck import SumcheckError
+    from jolt_tpu.subtables.rv32i import (EqSubtable, IdentitySubtable,
+                                          TruncateOverflowSubtable)
+    from jolt_tpu.utils import serialization as jser
+    from jolt_tpu.vm.host import fibonacci_program as j_fibonacci_program
+    from jolt_tpu.vm.host import trace_program as j_trace_program
+    from jolt_tpu.vm.rv32i_vm import mini_vm
+
+    jvm = mini_vm([AddInstruction, BneInstruction],
+                  [TruncateOverflowSubtable(32), IdentitySubtable(),
+                   EqSubtable()], M_mini=fx.M_MINI, spec=jfr_spec())
+    _, _, jrows = j_trace_program(j_fibonacci_program(fx.FIB_N), jvm,
+                                  max_input_size=32, max_output_size=32,
+                                  native=False)
+    jpre = jvm.preprocess(jrows, JHyperKZG.setup(fx.SRS_LEN))
+    jproof, jcom = jser.deserialize_jolt_proof_with_commitments(
+        _canonical(fib3))
+    jvm.verify(jpre, jproof, jcom)
+    ops = jproof.read_write_memory.output_proof
+    ops.opening = ops.opening + JFElt(1, jfr_spec())
+    with pytest.raises((AssertionError, SumcheckError)):
+        jvm.verify(jpre, jproof, jcom)
