@@ -50,11 +50,19 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      (K1-K5 must have launched; the largest call of each kernel, and of K2
      and K3 at each batch size, replayed against the plain version),
      accept, tamper rejected, timed verify; the guest's 32
-     output bytes must equal hashlib's sha256 iterated 13 times;
+     output bytes must equal hashlib's sha256 iterated 13 times.  The
+     prove runs with the profiling spans on (utils/profiling.py; each
+     syncs the card on entry and exit): their table is printed, and each
+     of the seven top-level prove spans (witness_generation,
+     JoltPolynomials::commit, BytecodeProof::prove_memory_checking,
+     InstructionLookupsProof::prove, ReadWriteMemoryProof::prove,
+     UniformSpartanProof::prove, reduce_and_prove) must fire once, their
+     sum lying within 90-100 % of the prove's seconds;
   9. reference at full width: rv32i_vm() (M = 2^16) with the mock PCS on
      the card proves each frozen case of jolt_tpu_torch/vm/fixtures.py
      (fibonacci(8), the M-extension program, a program of every load and
-     store width, sha2_chain_program(1)): its transcript and its
+     store width, sha2_chain_program(1), multi_function_program(4) with
+     its JAL calls and JALR returns): its transcript and its
      commitments' digests must equal jolt_tpu's (fixtures/port/<case>.npz);
      then the load/store program with HyperKZG over the 2^16-point SRS
      fixture, whose transcript, commitment digests and arkworks proof
@@ -112,7 +120,14 @@ Phases (any failure exits non-zero, no phase catches and carries on):
  14. the scaffold: `cli.py new` writes a guest and host project into a
      temporary directory, and its host.py runs as __main__ in a child
      process on the card (HyperKZG): it must print `proof verified`, and
-     K1-K5 must have launched in that process.
+     K1-K5 must have launched in that process;
+ 15. the traced prove: `python -m jolt_tpu_torch.cli --trace DIR prove-fib
+     --n 8 --pcs hyperkzg --profile` in a child process on the card must
+     exit 0; its DIR/trace.json (torch.profiler, CPU and CUDA) must parse
+     as JSON and hold the span names (the seven top-level prove spans,
+     BatchedDenseGP::layer, Sumcheck::prove_arbitrary) and at least one
+     mont_mul_kernel (K1) kernel event; the child's span table is
+     printed.
 Phase 1 also builds the native tracer and Keccak (g++) from their sources
 and prints the compiler and the libraries' paths.  Then a {"kernels":
 [...]} JSON line, the card line again, and last {"ok": true, "device":
@@ -173,6 +188,17 @@ SCAFFOLD_RUNNER = (
     "from jolt_tpu_torch import _native as nat; "
     "runpy.run_path('host.py', run_name='__main__'); "
     "print('launches ' + json.dumps(nat.launch_counts()), flush=True)")
+# the prove's top-level spans (jolt_tpu/vm/jolt.py's names), which phase 8
+# checks cover the prove
+PROVE_SPANS = ("witness_generation", "JoltPolynomials::commit",
+               "BytecodeProof::prove_memory_checking",
+               "InstructionLookupsProof::prove", "ReadWriteMemoryProof::prove",
+               "UniformSpartanProof::prove", "reduce_and_prove")
+SPAN_COVER = (0.90, 1.00)
+# phase 15: the CLI's traced prove, in a child process on the card
+TRACE_CMD = ("prove-fib", "--n", "8", "--pcs", "hyperkzg", "--profile")
+TRACE_SPANS = PROVE_SPANS + ("BatchedDenseGP::layer",
+                             "Sumcheck::prove_arbitrary")
 
 
 def work(name: str, args) -> tuple[int, int]:
@@ -362,6 +388,7 @@ def main() -> None:
         BatchedDenseGrandProduct
     from jolt_tpu_torch.subprotocols.grand_product_quarks import \
         QuarkGrandProduct
+    from jolt_tpu_torch.utils import profiling
     from jolt_tpu_torch.utils import serialization as ser
     from jolt_tpu_torch.curve.bn254 import G1Affine, g1_msm_host
     from jolt_tpu_torch.poly import mle
@@ -808,11 +835,13 @@ def main() -> None:
                    largest.values() for t in tensors(args)) / 1e9
 
     def vm_path(phase, label, vm, program, want_steps, want_T,
-                by_batch=False, **trace_args):
+                by_batch=False, spans=False, **trace_args):
         """Trace, set up, one prove (recorded, timed, then replayed),
         accept, tamper, timed verify; returns the launch counts of the
         main path (setup + the prove) and of the prove, and the program's
-        I/O."""
+        I/O.  With `spans`, the prove runs with the profiling spans on:
+        their table is printed, and each of PROVE_SPANS must fire once and
+        together cover SPAN_COVER of the prove's seconds."""
         t0 = time.perf_counter()
         steps, io, rows = trace_program(program, vm, **trace_args)
         trace_s = time.perf_counter() - t0
@@ -833,10 +862,15 @@ def main() -> None:
         setup_v = time.perf_counter() - t0
         setup_counts = nat.launch_counts()
         torch.cuda.reset_peak_memory_stats()
+        profiling.reset()
+        profiling.enable(spans)
         t0 = time.perf_counter()
         proof, com, tr, acc = vm.prove(io, steps, pre_v)
         torch.cuda.synchronize()
         prove_v = time.perf_counter() - t0
+        profiling.enable(False)
+        if spans:
+            span_check(phase, label, prove_v)
         peak, held = torch.cuda.max_memory_allocated() / 1e9, held_gb(largest)
         counts = nat.launch_counts()
         stop_recording()
@@ -874,6 +908,31 @@ def main() -> None:
         del proof, com, tr, acc, pre_v, pcs_v
         torch.cuda.empty_cache()
         return counts, prove_counts, io
+
+    def span_check(phase, label, prove_s):
+        """Print the span table of one prove, and fail unless each of
+        PROVE_SPANS fired once and they cover SPAN_COVER of its seconds."""
+        rows = {name: (calls, secs, ops)
+                for name, calls, secs, ops in profiling.cumulative()}
+        print(f"{phase}: the span table of the {label} prove [{card}]:",
+              flush=True)
+        profiling.print_cumulative()
+        once = [n for n in PROVE_SPANS if rows.get(n, (0,))[0] != 1]
+        if once:
+            fail(f"{phase}: prove spans that did not fire exactly once: "
+                 f"{once}")
+        top = sum(rows[n][1] for n in PROVE_SPANS)
+        share = top / prove_s
+        print(f"{phase}: prove_s={prove_s:.3f}; the {len(PROVE_SPANS)} "
+              f"top-level prove spans sum to {top:.3f} s = {100 * share:.2f} "
+              f"% of it; shares: " + ", ".join(
+                  f"{n} {100 * rows[n][1] / prove_s:.2f} %"
+                  for n in sorted(rows, key=lambda n: -rows[n][1])),
+              flush=True)
+        if not SPAN_COVER[0] <= share <= SPAN_COVER[1]:
+            fail(f"{phase}: the top-level prove spans cover "
+                 f"{100 * share:.2f} % of the prove, outside "
+                 f"{SPAN_COVER}")
 
     # -- phase 6: the mini VM, fibonacci at T = 2^14 ----------------------
     fib_counts, fib_prove_counts, _ = vm_path(
@@ -914,7 +973,7 @@ def main() -> None:
     sha2_counts, sha2_prove_counts, io8 = vm_path(
         "phase 8", f"sha2-chain({SHA2_ITERS})", rv32i_vm(),
         sha2_chain_program(SHA2_ITERS), SHA2_STEPS, SHA2_T, by_batch=True,
-        inputs=cli.SHA2_INPUT)
+        spans=True, inputs=cli.SHA2_INPUT)
     out8 = bytes(io8.outputs)[:32]
     if out8 != sha2_chain_expected(cli.SHA2_INPUT, SHA2_ITERS):
         fail(f"sha2-chain({SHA2_ITERS}): the guest's output {out8.hex()} is "
@@ -1468,6 +1527,55 @@ def main() -> None:
           f"{json.dumps(scaffold_counts)}", flush=True)
 
     phase_done("phase 14")
+
+    # -- phase 15: the CLI's traced, profiled prove in a child process ----
+    with tempfile.TemporaryDirectory() as td:
+        cmd15 = [sys.executable, "-m", "jolt_tpu_torch.cli", "--trace", td,
+                 *TRACE_CMD]
+        t0 = time.perf_counter()
+        run15 = subprocess.run(cmd15, cwd=ROOT, capture_output=True,
+                               text=True, timeout=600,
+                               env={**os.environ, "PYTHONPATH": str(ROOT)})
+        child15_s = time.perf_counter() - t0
+        if run15.returncode != 0:
+            fail(f"phase 15: {' '.join(cmd15[1:])} failed (rc "
+                 f"{run15.returncode}): {run15.stdout[-2000:]} "
+                 f"{run15.stderr[-2000:]}")
+        trace15 = Path(td) / profiling.TRACE_FILE
+        size15 = trace15.stat().st_size
+        t0 = time.perf_counter()
+        try:
+            data15 = json.loads(trace15.read_text())
+        except ValueError as e:
+            fail(f"phase 15: the trace is not JSON: {e}")
+        parse15_s = time.perf_counter() - t0
+    events15 = data15["traceEvents"] if isinstance(data15, dict) else data15
+    del data15
+    names15 = {e.get("name") for e in events15}
+    cats15 = {}
+    for e in events15:
+        cats15[e.get("cat")] = cats15.get(e.get("cat"), 0) + 1
+    k1_fn = next(k.function for k in nat.KERNELS if k.name == "mont_mul")
+    k1_events = sum(1 for e in events15 if e.get("cat") == "kernel"
+                    and k1_fn in (e.get("name") or ""))
+    del events15
+    missing15 = [n for n in TRACE_SPANS if n not in names15]
+    if missing15:
+        fail(f"phase 15: the trace lacks the spans {missing15}")
+    if k1_events < 1:
+        fail(f"phase 15: the trace holds no {k1_fn} (K1) kernel event")
+    out15 = run15.stdout.splitlines()
+    res15 = json.loads(out15[-1])
+    print("phase 15: " + " ".join(cmd15[1:4]) + " DIR " + " ".join(TRACE_CMD)
+          + f": rc 0 in {child15_s:.2f} s; {res15}", flush=True)
+    for line in out15[:-1]:
+        print(f"phase 15: | {line}", flush=True)
+    print(f"phase 15: the trace: {size15} bytes, JSON parsed in "
+          f"{parse15_s:.2f} s; events by category {json.dumps(cats15)}; "
+          f"{k1_events} {k1_fn} (K1/K4) kernel events; "
+          f"every one of {len(TRACE_SPANS)} span names present", flush=True)
+
+    phase_done("phase 15")
     print(f"phase wall seconds {json.dumps(walls)}, total "
           f"{sum(walls.values()):.1f}", flush=True)
 

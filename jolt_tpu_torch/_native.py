@@ -2,7 +2,8 @@
 
 Each source `csrc/<name>.cu` (with `csrc/field.cuh`) is compiled by `nvcc`
 for `sm_90a` into a shared library with a plain C interface, at first use,
-into `jolt_tpu_torch/_build/`.  The library's file name carries a hash of
+into `jolt_tpu_torch/_build/` (`utils/caches.py` `build_dir`;
+JOLT_TPU_CACHE_DIR overrides).  The library's file name carries a hash of
 its sources and flags, so an edited source is rebuilt and a stale library
 is never loaded.  `build()` starts one `nvcc` per source, all at once.
 
@@ -25,8 +26,10 @@ from pathlib import Path
 
 import torch
 
+from .utils.caches import build_dir
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+BUILD_DIR = Path(build_dir())
 SOURCES = ("mont", "gp_pair", "point")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -58,7 +61,7 @@ def build(names=SOURCES, ptxas_verbose: bool = False) -> dict[str, str]:
     """Compile every missing library, one nvcc process per source, started
     together.  Returns {name: compiler stderr} (the -Xptxas -v report when
     `ptxas_verbose`); raises with the compiler's output on a failure."""
-    BUILD_DIR.mkdir(exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = lib_path(name)

@@ -2,8 +2,9 @@
 
     python -m jolt_tpu_torch.cli surge-bench --nv 20 [--nv-hi 24]
         [--prover-runs 10] [--verifier-runs 50] [--device cuda|cpu]
+    python -m jolt_tpu_torch.cli [--trace DIR] COMMAND ...
     python -m jolt_tpu_torch.cli prove-fib [--n 8] [--pcs mock|hyperkzg]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--profile]
     python -m jolt_tpu_torch.cli prove-sha2-chain [--iters 1]
         [--pcs mock|hyperkzg] [--device cuda|cpu]
     python -m jolt_tpu_torch.cli prove-guest --guest GUEST [--n 1]
@@ -25,6 +26,12 @@ size the reference's bench prints; it is null for the mock PCS, whose
 proofs hold no curve points.  `prove-guest` proves one of GUESTS on
 rv32i_vm() and checks its output against the guest's host oracle;
 `analyze` prints a guest's trace length and per-opcode histogram.
+`prove-sha2-chain` and `prove-guest` (and `prove-fib` with `--profile`)
+turn on the profiling spans (utils/profiling.py) and print their table
+(span, calls, total seconds, Mmuls/s, % of the roofline) before the JSON
+line.  `--trace DIR` runs the command under torch.profiler and writes
+DIR/trace.json (Chrome trace format; the spans appear as ranges over the
+kernels they launched).
 `pcs-bench` times one commitment scheme's setup and commit of a 2^logn
 polynomial (benches/pcs_bench.rs; jolt_tpu's cli.py:85-114): values below
 2^63 from default_rng(0), one commit with its first-call costs, then a
@@ -58,6 +65,7 @@ from .instructions import AddInstruction, BneInstruction, XorInstruction
 from .lasso import SurgePreprocessing, surge_prove, surge_verify
 from .subtables.rv32i import (EqSubtable, IdentitySubtable,
                               TruncateOverflowSubtable)
+from .utils import profiling
 from .utils.ark_proof import jolt_proof_bytes, serialize_surge_proof
 from .vm import guests
 from .vm.analyze import trace_analyze
@@ -359,6 +367,9 @@ def new_project(path: str, pcs: str = "hyperkzg") -> list[str]:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m jolt_tpu_torch.cli")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the command to "
+                    "DIR/trace.json (Chrome trace format)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     sb = sub.add_parser("surge-bench", help="Surge XOR lookups, C=4, M=2^16")
     sb.add_argument("--nv", type=int, default=20)
@@ -372,6 +383,8 @@ def main(argv=None) -> None:
     pf.add_argument("--n", type=int, default=8)
     pf.add_argument("--pcs", choices=("mock", "hyperkzg"), default="mock")
     pf.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    pf.add_argument("--profile", action="store_true",
+                    help="print the cumulative span table")
     ps = sub.add_parser("prove-sha2-chain", help="prove + verify the "
                         "sha2-chain guest on the full RV32I VM")
     ps.add_argument("--iters", type=int, default=1)
@@ -396,32 +409,47 @@ def main(argv=None) -> None:
     nw.add_argument("name")
     nw.add_argument("--pcs", choices=("mock", "hyperkzg"), default="hyperkzg")
     args = ap.parse_args(argv)
+    if args.trace:
+        with profiling.trace(args.trace):
+            _run(args)
+    else:
+        _run(args)
+
+
+def _run(args) -> None:
+    """Run one parsed command, printing one JSON line per result; the
+    proving commands print the span table before it (prove-fib with
+    --profile)."""
+    spans = args.cmd in ("prove-sha2-chain", "prove-guest") or \
+        getattr(args, "profile", False)
     if args.cmd == "new":
         files = new_project(args.name, args.pcs)
         print(f"created {args.name}/: {' '.join(files)}", flush=True)
         return
-    if args.cmd == "pcs-bench":
-        print(json.dumps(pcs_bench(args.pcs, args.logn, device=args.device)),
-              flush=True)
-        return
-    if args.cmd == "prove-guest":
-        print(json.dumps(prove_guest(args.guest, args.n, args.pcs,
-                                     device=args.device)), flush=True)
-        return
-    if args.cmd == "analyze":
-        print(json.dumps(analyze(args.guest, args.n)), flush=True)
-        return
-    if args.cmd == "prove-fib":
-        print(json.dumps(prove_fib(args.n, args.pcs, device=args.device)),
-              flush=True)
-        return
-    if args.cmd == "prove-sha2-chain":
-        print(json.dumps(prove_sha2_chain(args.iters, args.pcs,
-                                          device=args.device)), flush=True)
-        return
-    nv_list = list(range(args.nv, (args.nv_hi or args.nv) + 1))
-    for row in surge_bench(nv_list, args.prover_runs, args.verifier_runs,
-                           args.device):
+    profiling.reset()
+    profiling.enable(spans)
+    try:
+        if args.cmd == "pcs-bench":
+            rows = [pcs_bench(args.pcs, args.logn, device=args.device)]
+        elif args.cmd == "prove-guest":
+            rows = [prove_guest(args.guest, args.n, args.pcs,
+                                device=args.device)]
+        elif args.cmd == "analyze":
+            rows = [analyze(args.guest, args.n)]
+        elif args.cmd == "prove-fib":
+            rows = [prove_fib(args.n, args.pcs, device=args.device)]
+        elif args.cmd == "prove-sha2-chain":
+            rows = [prove_sha2_chain(args.iters, args.pcs,
+                                     device=args.device)]
+        else:
+            nv_list = list(range(args.nv, (args.nv_hi or args.nv) + 1))
+            rows = surge_bench(nv_list, args.prover_runs,
+                               args.verifier_runs, args.device)
+    finally:
+        profiling.enable(False)
+    if spans:
+        profiling.print_cumulative()
+    for row in rows:
         print(json.dumps(row), flush=True)
 
 

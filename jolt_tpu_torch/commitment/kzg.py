@@ -4,7 +4,8 @@ pairing check.
 
 * The SRS is g * tau^i for a tau drawn from a deterministic seed, kept in
   Jacobian form [16, N] per coordinate.  `srs_setup` reads the committed
-  `fixtures/srs/srs_<n>_<seed>.npz` when one of at least n points exists
+  `fixtures/srs/srs_<n>_<seed>.npz` (`utils/caches.py` `srs_cache_dir`;
+  JOLT_TPU_SRS_CACHE_DIR overrides) when one of at least n points exists
   (any prefix of a larger SRS is the smaller SRS) and otherwise generates
   the points on the device: powers of tau, then a fixed-base windowed table
   gather and a log-depth tree of Jacobian adds (K6).  It never writes into
@@ -36,10 +37,10 @@ from ..curve.pairing import pairing_product_is_one
 from ..field import device as fd
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
+from ..utils import caches
 
 FR = fr_spec()
 SRS_SEED = 0x6A6F6C74
-FIXTURE_DIR = Path(__file__).resolve().parents[2] / "fixtures" / "srs"
 SRS_CHUNK = 1 << 18   # points per generation pass (bounds [16, 32, chunk])
 
 
@@ -159,12 +160,14 @@ def fixed_base_points(canon: torch.Tensor):
 
 
 def fixture_path(n: int, seed: int = SRS_SEED) -> Path | None:
-    """The smallest committed SRS fixture of at least n points, if any."""
-    if not FIXTURE_DIR.is_dir():
+    """The smallest committed SRS fixture of at least n points, if any, in
+    `caches.srs_cache_dir()`."""
+    srs_dir = Path(caches.srs_cache_dir())
+    if not srs_dir.is_dir():
         return None
     pat = re.compile(rf"srs_(\d+)_{seed:x}\.npz$")
     sizes = {}
-    for f in FIXTURE_DIR.iterdir():
+    for f in srs_dir.iterdir():
         m = pat.match(f.name)
         if m:
             sizes[int(m.group(1))] = f

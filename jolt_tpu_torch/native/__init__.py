@@ -2,7 +2,8 @@
 (jolt_tpu/native/).
 
 `tracer.cpp` and `keccak.cpp` are compiled by g++ at first use into
-`jolt_tpu_torch/_build/`, beside the CUDA libraries; each library's file
+`jolt_tpu_torch/_build/` (`utils/caches.py` `build_dir`; JOLT_TPU_CACHE_DIR
+overrides), beside the CUDA libraries; each library's file
 name carries a hash of its source and flags, so an edited source is
 rebuilt and a stale library is never loaded.  A failed build or trace
 raises: nothing falls back to Python.  The Python versions stay as the
@@ -21,8 +22,10 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils.caches import build_dir
+
 SRC_DIR = Path(__file__).resolve().parent
-BUILD_DIR = SRC_DIR.parent / "_build"
+BUILD_DIR = Path(build_dir())
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
@@ -55,7 +58,7 @@ def _compile(src_name: str, lib_stem: str) -> Path:
     out = lib_path(src_name, lib_stem)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
     cmd = [CXX, *CXX_FLAGS, "-o", str(tmp), str(SRC_DIR / src_name)]
     try:

@@ -35,6 +35,7 @@ from ..field.spec import FieldSpec, fr_spec
 from ..poly.mle import bitrev_indices, eq_evals_device_br
 from ..poly.unipoly import CompressedUniPoly, UniPoly
 from ..transcript import Transcript
+from ..utils.profiling import span
 from .sumcheck import SumcheckInstanceProof, VerificationError
 
 
@@ -145,44 +146,53 @@ def _prove_dense_layers(spec: FieldSpec, layers: list[tuple],
     for li in range(len(layers) - 1, -1, -1):
         l, r = layers[li]
         layers[li] = None
-        dev = l.device
-        coeffs = transcript.challenge_vector(len(claims))
-        joint_claim = FElt(0, spec)
-        for c, co in zip(claims, coeffs):
-            joint_claim = joint_claim + c * co
-        coeffs_dev = fd.ints_to_device(spec, [c.v for c in coeffs], dev)
-        eq = eq_evals_device_br(spec, r_grand_product, dev)
+        # roofline accounting: per round at per-side size s, the cubic
+        # evals cost h*(B*5+3) field muls and the bind h*(B*2+1), h = s/2
+        # halving each round (grand_product.rs:335-396 mul counts)
+        B, _, s = l.shape
+        ops = sum((s >> (j + 1)) * (B * 7 + 4)
+                  for j in range(len(r_grand_product)))
+        with span("BatchedDenseGP::layer", ops=ops):
+            dev = l.device
+            coeffs = transcript.challenge_vector(len(claims))
+            joint_claim = FElt(0, spec)
+            for c, co in zip(claims, coeffs):
+                joint_claim = joint_claim + c * co
+            coeffs_dev = fd.ints_to_device(spec, [c.v for c in coeffs],
+                                           dev)
+            eq = eq_evals_device_br(spec, r_grand_product, dev)
 
-        r_sumcheck: list[FElt] = []
-        compressed: list[CompressedUniPoly] = []
-        previous_claim = joint_claim
-        for _ in range(len(r_grand_product)):
-            e0, e2, e3 = _felts(spec, _pair_cubic_evals(spec, l, r, eq,
-                                                        coeffs_dev))
-            round_poly = UniPoly.from_evals([e0, previous_claim - e0, e2, e3])
-            cpoly = round_poly.compress()
-            cpoly.append_to_transcript(transcript)
-            r_j = transcript.challenge_scalar()
-            r_sumcheck.append(r_j)
-            l, r, eq = _pair_bind(spec, l, r, eq,
-                                  fd.scalar_to_device(spec, r_j.v, "cpu"))
-            previous_claim = round_poly.evaluate(r_j)
-            compressed.append(cpoly)
+            r_sumcheck: list[FElt] = []
+            compressed: list[CompressedUniPoly] = []
+            previous_claim = joint_claim
+            for _ in range(len(r_grand_product)):
+                e0, e2, e3 = _felts(spec, _pair_cubic_evals(spec, l, r, eq,
+                                                            coeffs_dev))
+                round_poly = UniPoly.from_evals([e0, previous_claim - e0,
+                                                 e2, e3])
+                cpoly = round_poly.compress()
+                cpoly.append_to_transcript(transcript)
+                r_j = transcript.challenge_scalar()
+                r_sumcheck.append(r_j)
+                l, r, eq = _pair_bind(
+                    spec, l, r, eq, fd.scalar_to_device(spec, r_j.v, "cpu"))
+                previous_claim = round_poly.evaluate(r_j)
+                compressed.append(cpoly)
 
-        finals = _felts(spec, torch.cat([l[..., 0].T, r[..., 0].T], dim=1))
-        B = l.shape[0]
-        left_claims, right_claims = finals[:B], finals[B:]
-        for lc, rc in zip(left_claims, right_claims):
-            transcript.append_scalar(lc)
-            transcript.append_scalar(rc)
+            finals = _felts(spec, torch.cat([l[..., 0].T, r[..., 0].T],
+                                            dim=1))
+            left_claims, right_claims = finals[:B], finals[B:]
+            for lc, rc in zip(left_claims, right_claims):
+                transcript.append_scalar(lc)
+                transcript.append_scalar(rc)
 
-        r_grand_product = list(reversed(r_sumcheck))
-        r_layer = transcript.challenge_scalar()
-        claims = [lc + r_layer * (rc - lc)
-                  for lc, rc in zip(left_claims, right_claims)]
-        r_grand_product.append(r_layer)
-        layer_proofs.append(BatchedGrandProductLayerProof(
-            SumcheckInstanceProof(compressed), left_claims, right_claims))
+            r_grand_product = list(reversed(r_sumcheck))
+            r_layer = transcript.challenge_scalar()
+            claims = [lc + r_layer * (rc - lc)
+                      for lc, rc in zip(left_claims, right_claims)]
+            r_grand_product.append(r_layer)
+            layer_proofs.append(BatchedGrandProductLayerProof(
+                SumcheckInstanceProof(compressed), left_claims, right_claims))
     return layer_proofs, r_grand_product, claims
 
 

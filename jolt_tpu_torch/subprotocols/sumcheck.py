@@ -21,6 +21,7 @@ from ..field.spec import FieldSpec, fr_spec
 from ..poly.mle import bind_bot, bind_top
 from ..poly.unipoly import CompressedUniPoly, UniPoly
 from ..transcript import Transcript
+from ..utils.profiling import span
 
 
 class VerificationError(Exception):
@@ -99,19 +100,27 @@ def prove_arbitrary(num_rounds: int,
     Returns (proof, challenge point r, final per-poly evaluations)."""
     spec = spec or fr_spec()
     polys = tuple(polys)
+    # roofline accounting (approximate: comb_func's cost taken as the
+    # (npolys-1)-mul product form): per round at half-size h, (degree+1)
+    # comb evaluations of h*(npolys-1) muls plus the npolys*h bind muls
+    n_polys, n = len(polys), polys[0].shape[-1]
+    ops = sum((n >> (j + 1)) * ((degree + 1) * (n_polys - 1) + n_polys)
+              for j in range(num_rounds))
     r: list[FElt] = []
     compressed: list[CompressedUniPoly] = []
-    for _ in range(num_rounds):
-        evals = _felts(spec, _round_evals(spec, comb_func, degree, polys))
-        round_poly = UniPoly.from_evals(evals)
-        cpoly = round_poly.compress()
-        cpoly.append_to_transcript(transcript)
-        r_j = transcript.challenge_scalar()
-        r.append(r_j)
-        rv = fd.scalar_to_device(spec, r_j.v, polys[0].device)
-        polys = tuple(bind_top(spec, p, rv) for p in polys)
-        compressed.append(cpoly)
-    final_evals = _felts(spec, torch.stack([p[..., 0] for p in polys], dim=1))
+    with span("Sumcheck::prove_arbitrary", ops=ops):
+        for _ in range(num_rounds):
+            evals = _felts(spec, _round_evals(spec, comb_func, degree, polys))
+            round_poly = UniPoly.from_evals(evals)
+            cpoly = round_poly.compress()
+            cpoly.append_to_transcript(transcript)
+            r_j = transcript.challenge_scalar()
+            r.append(r_j)
+            rv = fd.scalar_to_device(spec, r_j.v, polys[0].device)
+            polys = tuple(bind_top(spec, p, rv) for p in polys)
+            compressed.append(cpoly)
+        final_evals = _felts(spec, torch.stack([p[..., 0] for p in polys],
+                                               dim=1))
     return SumcheckInstanceProof(compressed), r, final_evals
 
 

@@ -28,7 +28,8 @@ import hashlib
 
 import numpy as np
 
-from .guests import SHA2_INPUT, _Asm, sha2_chain_program
+from .guests import (SHA2_INPUT, _Asm, multi_function_program,
+                     sha2_chain_program)
 from .host import fibonacci_program
 from .rv_trace import (DEFAULT_MAX_INPUT_SIZE, DEFAULT_MAX_OUTPUT_SIZE,
                        RAM_START_ADDRESS, RV32IM, MemoryLayout)
@@ -37,10 +38,11 @@ FIB_N = 3              # the fib3 cases: fibonacci(3) on the mini VM
 M_MINI = 1 << 8
 SRS_LEN = 1 << 8
 RV32I_FIB_N = 8
+MULTIFN_N = 4          # multi_function(4): JAL calls and JALR returns
 # The rv32i_vm() cases (C = 4, M = 2^16, the mock PCS), each proved and
 # verified by jolt_tpu.
 RV32I_CASES = ("rv32i_fib8_mock", "rv32i_muldiv_mock", "rv32i_loadstore_mock",
-               "rv32i_sha2_1_mock")
+               "rv32i_sha2_1_mock", "rv32i_multifn4_mock")
 # The same at full width with HyperKZG over the 2^16-point SRS fixture
 # (seed 0x6A6F6C74); its file adds the SHA-256 and length of the proof's
 # arkworks bytes (`ark_sha256`, `ark_len`).
@@ -212,7 +214,8 @@ def loadstore_expected(inputs: bytes = LOADSTORE_INPUT) -> bytes:
 
 
 def case_program(case: str, asm_cls=_Asm, ops=RV32IM, fib=fibonacci_program,
-                 sha2=sha2_chain_program) -> tuple[list, bytes]:
+                 sha2=sha2_chain_program, multifn=multi_function_program
+                 ) -> tuple[list, bytes]:
     """(program, inputs) of `narrow_mock` or one of RV32I_CASES and
     RV32I_HYPERKZG_CASES, built with
     the given package's assembler, opcodes and guests (the port's by
@@ -227,6 +230,8 @@ def case_program(case: str, asm_cls=_Asm, ops=RV32IM, fib=fibonacci_program,
         return loadstore_program(asm_cls, ops), LOADSTORE_INPUT
     if case == "rv32i_sha2_1_mock":
         return sha2(1), SHA2_INPUT
+    if case == "rv32i_multifn4_mock":
+        return multifn(MULTIFN_N), b""
     raise ValueError(f"unknown case {case}")
 
 

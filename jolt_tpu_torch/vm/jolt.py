@@ -22,6 +22,7 @@ from ..poly.opening_proof import (ProverOpeningAccumulator, ReducedOpeningProof,
                                   VerifierOpeningAccumulator)
 from ..transcript import Transcript
 from ..utils.math import log2_strict, next_power_of_two
+from ..utils.profiling import span
 from . import bytecode as bc
 from . import instruction_lookups as il
 from . import r1cs as r1cs_mod
@@ -106,14 +107,17 @@ class JoltVM:
             pk = getattr(pcs, "pk", None)
             device = pk.g1_jac[0].device if pk is not None else None
         dev = resolve_device(device)
-        return JoltPreprocessing(
-            instruction_lookups=il.InstructionLookupsPreprocessing(
+        with span("preprocess::instruction_lookups"):
+            ilp = il.InstructionLookupsPreprocessing(
                 self.instruction_classes, self.subtable_order, self.C,
-                self.M, dev, self.spec),
-            bytecode=bc.BytecodePreprocessing(bytecode_rows, dev, self.spec),
-            read_write_memory=rwm.ReadWriteMemoryPreprocessing(
-                min_bytecode_address, memory_init),
-            pcs=pcs, device=dev)
+                self.M, dev, self.spec)
+        with span("preprocess::bytecode"):
+            bcp = bc.BytecodePreprocessing(bytecode_rows, dev, self.spec)
+        with span("preprocess::read_write_memory"):
+            rwp = rwm.ReadWriteMemoryPreprocessing(min_bytecode_address,
+                                                   memory_init)
+        return JoltPreprocessing(instruction_lookups=ilp, bytecode=bcp,
+                                 read_write_memory=rwp, pcs=pcs, device=dev)
 
     def _preamble(self, transcript: Transcript, program_io: JoltDevice,
                   trace_length: int) -> None:
@@ -174,50 +178,54 @@ class JoltVM:
         self._preamble(transcript, program_io, trace_length)
 
         # --- witness generation -------------------------------------------
-        instr_idx = np.array([s.instruction_index for s in trace],
-                             dtype=np.int64)
-        xs = np.array([s.lookup_x for s in trace], dtype=np.uint64)
-        ys = np.array([s.lookup_y for s in trace], dtype=np.uint64)
-        il_polys = il.generate_witness(pre.instruction_lookups, instr_idx,
-                                       xs, ys)
+        with span("witness_generation"):
+            instr_idx = np.array([s.instruction_index for s in trace],
+                                 dtype=np.int64)
+            xs = np.array([s.lookup_x for s in trace], dtype=np.uint64)
+            ys = np.array([s.lookup_y for s in trace], dtype=np.uint64)
+            il_polys = il.generate_witness(pre.instruction_lookups,
+                                           instr_idx, xs, ys)
 
-        load_store_flags = np.stack(
-            [il_polys.instruction_flag_bits[k] for k in self.load_store_indices]) \
-            if len(self.load_store_indices) == 5 else np.zeros((5, T), np.uint8)
-        ops_is_write = np.array([s.memory_ops_is_write for s in trace]).T
-        ops_addr = np.array([s.memory_ops_addr for s in trace],
-                            dtype=np.uint64).T
-        ops_val = np.array([s.memory_ops_val for s in trace],
-                           dtype=np.uint64).T
-        rwm_polys = rwm.generate_witness(pre.read_write_memory, program_io,
-                                         load_store_flags, ops_is_write,
-                                         ops_addr, ops_val, spec, dev)
+            load_store_flags = np.stack(
+                [il_polys.instruction_flag_bits[k]
+                 for k in self.load_store_indices]) \
+                if len(self.load_store_indices) == 5 \
+                else np.zeros((5, T), np.uint8)
+            ops_is_write = np.array([s.memory_ops_is_write for s in trace]).T
+            ops_addr = np.array([s.memory_ops_addr for s in trace],
+                                dtype=np.uint64).T
+            ops_val = np.array([s.memory_ops_val for s in trace],
+                               dtype=np.uint64).T
+            rwm_polys = rwm.generate_witness(pre.read_write_memory,
+                                             program_io, load_store_flags,
+                                             ops_is_write, ops_addr, ops_val,
+                                             spec, dev)
 
-        bc_polys = bc.generate_witness(pre.bytecode,
-                                       [s.bytecode_row for s in trace], T)
-        ts_polys = ts.generate_witness(rwm_polys.t_read_host, spec, dev)
+            bc_polys = bc.generate_witness(pre.bytecode,
+                                           [s.bytecode_row for s in trace], T)
+            ts_polys = ts.generate_witness(rwm_polys.t_read_host, spec, dev)
 
-        # r1cs witness: chunks + circuit flags (inputs.rs:163-214)
-        log_M = log2_strict(self.M)
-        chunks_x = np.zeros((self.C, T), dtype=np.uint64)
-        chunks_y = np.zeros((self.C, T), dtype=np.uint64)
-        cflags = np.array([s.circuit_flags for s in trace],
-                          dtype=np.uint64).T
-        active = instr_idx >= 0
-        if active.any():
-            chunks_x[:, active] = chunk_operand_vec(xs[active], self.C,
-                                                    log_M // 2)
-            chunks_y[:, active] = chunk_operand_vec(ys[active], self.C,
-                                                    log_M // 2)
-        r1cs_polys = {name: fd.u64_to_mont_device(spec, arr, dev)
-                      for name, arr in (("chunks_x", chunks_x),
-                                        ("chunks_y", chunks_y),
-                                        ("circuit_flags", cflags))}
+            # r1cs witness: chunks + circuit flags (inputs.rs:163-214)
+            log_M = log2_strict(self.M)
+            chunks_x = np.zeros((self.C, T), dtype=np.uint64)
+            chunks_y = np.zeros((self.C, T), dtype=np.uint64)
+            cflags = np.array([s.circuit_flags for s in trace],
+                              dtype=np.uint64).T
+            active = instr_idx >= 0
+            if active.any():
+                chunks_x[:, active] = chunk_operand_vec(xs[active], self.C,
+                                                        log_M // 2)
+                chunks_y[:, active] = chunk_operand_vec(ys[active], self.C,
+                                                        log_M // 2)
+            r1cs_polys = {name: fd.u64_to_mont_device(spec, arr, dev)
+                          for name, arr in (("chunks_x", chunks_x),
+                                            ("chunks_y", chunks_y),
+                                            ("circuit_flags", cflags))}
 
-        builder, non_uniform, key = self._constraints(program_io, T)
-        flattened = self._flattened_polys(bc_polys, rwm_polys, il_polys,
-                                          r1cs_polys)
-        r1cs_mod.compute_aux(builder, flattened, T, spec)
+            builder, non_uniform, key = self._constraints(program_io, T)
+            flattened = self._flattened_polys(bc_polys, rwm_polys, il_polys,
+                                              r1cs_polys)
+            r1cs_mod.compute_aux(builder, flattened, T, spec)
 
         # --- commitments ----------------------------------------------------
         pcs = pre.pcs
@@ -237,8 +245,9 @@ class JoltVM:
         lay = self.commit_layout(pre.instruction_lookups.num_memories)
         lay.check_rw(rw_polys)
         lay.check_if(if_polys)
-        rw_commitments = pcs.batch_commit(rw_polys)
-        if_commitments = pcs.batch_commit(if_polys)
+        with span("JoltPolynomials::commit"):
+            rw_commitments = pcs.batch_commit(rw_polys)
+            if_commitments = pcs.batch_commit(if_polys)
         del rw_polys, if_polys
 
         transcript.append_scalar(key.vk_digest)
@@ -248,22 +257,27 @@ class JoltVM:
         acc = ProverOpeningAccumulator(spec)
 
         # --- component proofs -----------------------------------------------
-        bytecode_proof = bc.BytecodeMemoryChecking(
-            pre.bytecode).prove_memory_checking(bc_polys, transcript)
-        instruction_proof = il.prove_instruction_lookups(
-            pre.instruction_lookups, il_polys, acc, transcript)
-        mc_proof = rwm.prove_memory_checking(rwm_polys, bc_polys, transcript,
-                                             spec)
-        output_proof = rwm.prove_outputs(rwm_polys, program_io, acc,
-                                         transcript, spec)
-        ts_proof = ts.prove_timestamp_validity(ts_polys, rwm_polys, acc,
-                                               transcript, spec)
-        memory_proof = rwm.ReadWriteMemoryProof(mc_proof, output_proof,
-                                                ts_proof)
-        spartan_proof = r1cs_mod.spartan_prove(builder, non_uniform, key,
-                                               flattened, T, acc, transcript,
-                                               spec)
-        opening_proof = acc.reduce_and_prove(pcs, transcript)
+        with span("BytecodeProof::prove_memory_checking"):
+            bytecode_proof = bc.BytecodeMemoryChecking(
+                pre.bytecode).prove_memory_checking(bc_polys, transcript)
+        with span("InstructionLookupsProof::prove"):
+            instruction_proof = il.prove_instruction_lookups(
+                pre.instruction_lookups, il_polys, acc, transcript)
+        with span("ReadWriteMemoryProof::prove"):
+            mc_proof = rwm.prove_memory_checking(rwm_polys, bc_polys,
+                                                 transcript, spec)
+            output_proof = rwm.prove_outputs(rwm_polys, program_io, acc,
+                                             transcript, spec)
+            ts_proof = ts.prove_timestamp_validity(ts_polys, rwm_polys, acc,
+                                                   transcript, spec)
+            memory_proof = rwm.ReadWriteMemoryProof(mc_proof, output_proof,
+                                                    ts_proof)
+        with span("UniformSpartanProof::prove"):
+            spartan_proof = r1cs_mod.spartan_prove(builder, non_uniform, key,
+                                                   flattened, T, acc,
+                                                   transcript, spec)
+        with span("reduce_and_prove"):
+            opening_proof = acc.reduce_and_prove(pcs, transcript)
 
         proof = JoltProof(trace_length, program_io, bytecode_proof,
                           memory_proof, instruction_proof, spartan_proof,

@@ -23,6 +23,8 @@ jolt_tpu on the CPU and written to `fixtures/port/<case>.npz`:
                        every load and store width, and LUI
     rv32i_sha2_1_mock  sha2_chain_program(1) on rv32i_vm() (5,161 steps,
                        T = 2^13), the mock PCS
+    rv32i_multifn4_mock  multi_function_program(4) on rv32i_vm(), the mock
+                       PCS: JAL calls and JALR returns at full width
     rv32i_loadstore_hyperkzg  `loadstore_program` on rv32i_vm(), HyperKZG
                        over the 2^16-point SRS fixture; adds the SHA-256
                        and length of the proof's arkworks bytes
@@ -42,6 +44,13 @@ jolt_tpu on the CPU and written to `fixtures/port/<case>.npz`:
                    HyperKZG over a 2^8-point SRS: transcript, g commitments
                    and the canonical bytes of the grand-product proof
                    (jolt_tpu_torch/subprotocols/fixtures.py)
+    quark_mock     jolt_tpu's side of tests/test_torch_quarks.py's mock cases
+                   (quark_prove alone and the hybrid, B = 2, 2^3-2^6
+                   leaves): transcripts, proofs, claims and challenges, as
+                   fixtures/port/quark_mock.json
+    fib3_spans     jolt_tpu's profiling spans (name, calls, ops) of the
+                   fib3_mock preprocessing and prove, as
+                   fixtures/port/fib3_spans.json
     fib3_proof_bytes   the three fib3 proofs' `proof_size_bytes`, and the
                        HyperKZG one's canonical and arkworks bytes (SHA-256
                        and length), as fixtures/port/fib3_proof_bytes.json
@@ -94,7 +103,8 @@ def prove_rv32i_case(case: str) -> dict:
     from jolt_tpu.commitment.hyperkzg import HyperKZG
     from jolt_tpu.field import fr_spec
     from jolt_tpu.instructions import RV32I_INSTRUCTIONS
-    from jolt_tpu.vm.guests import _Asm, sha2_chain_program
+    from jolt_tpu.vm.guests import (_Asm, multi_function_program,
+                                    sha2_chain_program)
     from jolt_tpu.vm.host import fibonacci_program, trace_program
     from jolt_tpu.vm.rv32i_vm import RV32I_SUBTABLES, mini_vm, rv32i_vm
     from jolt_tpu.vm.rv_trace import RV32IM
@@ -108,7 +118,8 @@ def prove_rv32i_case(case: str) -> dict:
     else:
         vm = rv32i_vm(spec)
     program, inputs = fx.case_program(case, _Asm, RV32IM, fibonacci_program,
-                                      sha2_chain_program)
+                                      sha2_chain_program,
+                                      multi_function_program)
     steps, io, rows = trace_program(program, vm, inputs=inputs, native=False,
                                     **io_size)
     hyperkzg = case in fx.RV32I_HYPERKZG_CASES
@@ -122,15 +133,18 @@ def prove_rv32i_case(case: str) -> dict:
     return fx.proof_arrays(transcript, commitments, digest=True, ark=ark)
 
 
-def fib3_proof(case: str):
+def fib3_proof(case: str, spans: bool = False):
     """jolt_tpu's fib(3) proof of one of CASES, verified by jolt_tpu:
-    (vm, preprocessing, proof, commitments, transcript)."""
+    (vm, preprocessing, proof, commitments, transcript).  With `spans`,
+    jolt_tpu's profiling spans are on from the preprocessing to the end of
+    the prove, and the result is their (name, calls, ops) rows, sorted."""
     from jolt_tpu.commitment import MockCommitmentScheme
     from jolt_tpu.commitment.hyperkzg import HyperKZG
     from jolt_tpu.field import fr_spec
     from jolt_tpu.instructions import AddInstruction, BneInstruction
     from jolt_tpu.subtables.rv32i import (EqSubtable, IdentitySubtable,
                                           TruncateOverflowSubtable)
+    from jolt_tpu.utils import profiling
     from jolt_tpu.vm.host import fibonacci_program, trace_program
     from jolt_tpu.vm.rv32i_vm import mini_vm
 
@@ -147,10 +161,19 @@ def fib3_proof(case: str):
                                         native=False)
         pcs = HyperKZG.setup(fx.SRS_LEN) if case == "hyperkzg" \
             else MockCommitmentScheme(spec)
-        pre = vm.preprocess(rows, pcs)
-        proof, commitments, transcript, acc = vm.prove(io, steps, pre)
+        profiling.reset()
+        profiling.enable(spans)
+        try:
+            pre = vm.preprocess(rows, pcs)
+            proof, commitments, transcript, acc = vm.prove(io, steps, pre)
+        finally:
+            profiling.enable(False)
+        rows_out = sorted((name, calls, ops)
+                          for name, calls, _, ops in profiling.cumulative())
         vm.verify(pre, proof, commitments, debug_transcript=transcript,
                   debug_accumulator=acc)
+        if spans:
+            return rows_out
         return vm, pre, proof, commitments, transcript
     finally:
         os.environ.pop("JOLT_REFERENCE_PARITY", None)
@@ -366,6 +389,40 @@ def prove_quark_case() -> dict:
     return sfx.quark_arrays(t, proof, w.getvalue())
 
 
+def quark_mock_case(kind: str, log_n: int, seed: int) -> dict:
+    """jolt_tpu's proof of one of QUARK_MOCK_CASES (the mock PCS), the
+    opening accumulator reduced and proved after it, in the kept form of
+    jolt_tpu_torch/subprotocols/fixtures.py."""
+    import jax.numpy as jnp
+    from jolt_tpu.commitment import MockCommitmentScheme
+    from jolt_tpu.field import FElt, fr_spec
+    from jolt_tpu.field import device as jfd
+    from jolt_tpu.poly.opening_proof import ProverOpeningAccumulator
+    from jolt_tpu.subprotocols.grand_product_quarks import (
+        QuarkGrandProduct, quark_prove)
+    from jolt_tpu.transcript import Transcript
+    from jolt_tpu_torch.subprotocols import fixtures as sfx
+
+    spec = fr_spec()
+    vals = sfx.mock_leaves_u64(log_n, seed)
+    leaves = jfd.to_mont_device(spec, jnp.asarray(jfd.pack_u64(vals)))
+    t, acc = Transcript(sfx.QUARK_LABEL), ProverOpeningAccumulator(spec)
+    pcs = MockCommitmentScheme(spec)
+    if kind == "quark":
+        proof, r_t, h_r_t = quark_prove(leaves, pcs, acc, t, spec)
+        claims = [FElt(int(np.prod([int(v) for v in row], dtype=object)
+                           % spec.p), spec) for row in vals]
+        out = dict(r_t=r_t, h_r_t=h_r_t)
+    else:
+        gp = QuarkGrandProduct.construct(leaves, spec)
+        claims = gp.claims()
+        proof, r = gp.prove_grand_product(acc, t, pcs)
+        out = dict(r=r)
+    reduced = acc.reduce_and_prove(pcs, t)
+    return sfx.mock_record(dict(out, proof=proof, claims=claims,
+                                reduced=reduced, states=t.state_history))
+
+
 def main(argv=None) -> None:
     os.environ["JOLT_TPU_SRS_CACHE"] = "0"   # write nothing into fixtures/srs
     import jax
@@ -374,16 +431,26 @@ def main(argv=None) -> None:
     names = [f"fib3_{c}" for c in CASES] + ["narrow_mock", *fx.RV32I_CASES,
                                             *fx.RV32I_HYPERKZG_CASES,
                                             *PCS_CASES, "jolt_parts",
-                                            "quark_hyperkzg",
+                                            "quark_hyperkzg", "quark_mock",
+                                            "fib3_spans",
                                             "fib3_proof_bytes"]
     chosen = list(argv if argv is not None else sys.argv[1:]) or names
     for name in chosen:
         if name not in names:
             raise SystemExit(f"unknown case {name}; cases: {names}")
         t0 = time.perf_counter()
-        if name == "fib3_proof_bytes":
+        if name in ("fib3_proof_bytes", "quark_mock", "fib3_spans"):
+            if name == "fib3_proof_bytes":
+                record = fib3_proof_bytes()
+            elif name == "quark_mock":
+                from jolt_tpu_torch.subprotocols import fixtures as sfx
+                record = {case: quark_mock_case(*args)
+                          for case, args in sfx.QUARK_MOCK_CASES.items()}
+            else:
+                record = {"rows": fib3_proof("mock", spans=True)}
             path = OUT_DIR / f"{name}.json"
-            path.write_text(json.dumps(fib3_proof_bytes(), indent=1) + "\n")
+            indent = None if name == "quark_mock" else 1
+            path.write_text(json.dumps(record, indent=indent) + "\n")
             print(f"{path.relative_to(ROOT)}: "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             continue

@@ -37,6 +37,13 @@ With --unprofiled-only it stops after the unprofiled prove: the prove
 seconds alone, for comparing checkouts in turns in one call (copy this
 script into the other checkout's scripts/).
 
+With --span-cost PAIRS it measures what the profiling spans
+(jolt_tpu_torch/utils/profiling.py) cost instead: the seconds of one
+enabled, empty span on the idle card (10,000 of them, each with its two
+`torch.cuda.synchronize()` calls and its profiler range), the spans one
+prove opens, and PAIRS pairs of proves in turns with the spans off and on
+(off, on, on, off, ...), each prove's seconds and the means.
+
 With --replay-k2, the profile is K2's alone, in seconds rather than the
 full profile's minutes: the inputs of every K2 call of one prove are kept
 on the card, and the calls are replayed twice under torch.profiler; it
@@ -121,6 +128,44 @@ def replay_k2(prove, card: str, tag: str) -> None:
                   flush=True)
 
 
+def span_cost(prove, pairs: int, card: str, tag: str) -> None:
+    """The spans' cost: an empty span's seconds, and proves in turns with
+    the spans off and on."""
+    import torch
+    from jolt_tpu_torch.utils import profiling
+
+    n = 10_000
+    profiling.reset()
+    profiling.enable()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with profiling.span("empty"):
+            pass
+    empty_s = (time.perf_counter() - t0) / n
+    profiling.enable(False)
+    secs = {False: [], True: []}
+    order = [i % 4 in (1, 2) for i in range(2 * pairs)]   # off on on off
+    spans = 0
+    for on in order:
+        profiling.reset()
+        profiling.enable(on)
+        secs[on].append(prove())
+        profiling.enable(False)
+        if on:
+            spans = sum(calls for _, calls, _, _ in profiling.cumulative())
+        print(f"span-cost prove {tag} spans {'on' if on else 'off'}: "
+              f"{secs[on][-1]:.3f} s", flush=True)
+    off = sum(secs[False]) / len(secs[False])
+    on_ = sum(secs[True]) / len(secs[True])
+    print(f"span-cost {tag}: an empty enabled span {1e6 * empty_s:.2f} us "
+          f"on the idle card; {spans} spans per prove, so "
+          f"{1e3 * spans * empty_s:.3f} ms of spans per prove; proves in "
+          f"turns (off, on, on, off, ...): off {secs[False]} mean {off:.3f} "
+          f"s, on {secs[True]} mean {on_:.3f} s, on - off {on_ - off:+.3f} "
+          f"s ({100 * (on_ - off) / off:+.2f} %) [{card}]", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("surge", "fib", "sha2", "sha3",
@@ -134,6 +179,8 @@ def main() -> None:
     ap.add_argument("--sha3-iters", type=int, default=2)
     ap.add_argument("--unprofiled-only", action="store_true",
                     help="stop after the unprofiled prove (above)")
+    ap.add_argument("--span-cost", type=int, default=0, metavar="PAIRS",
+                    help="proves in turns with the spans off and on (above)")
     ap.add_argument("--replay-k2", action="store_true",
                     help="profile K2's calls of one prove alone (above)")
     args = ap.parse_args()
@@ -195,6 +242,9 @@ def main() -> None:
         return time.perf_counter() - t0
 
     print(f"warm-up prove {tag}: {prove():.3f} s", flush=True)
+    if args.span_cost:
+        span_cost(prove, args.span_cost, card, tag)
+        return
     if args.replay_k2:
         replay_k2(prove, card, tag)
         return

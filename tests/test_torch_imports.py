@@ -2,7 +2,8 @@
 to the CPU.
 
 - importing jolt_tpu_torch (every module of it: the SDK, the native
-  runtime, the ELF reader and the serializers among them) loads neither
+  runtime, the ELF reader, the serializers, the profiling spans and the
+  tracer's machine model among them) loads neither
   jax nor any jolt_tpu module nor elftools;
 - no source of the port, and not chip_smoke.py, imports them;
 - an entry point called with no CUDA card and no device="cpu" raises;
@@ -56,7 +57,10 @@ need = {"jolt_tpu_torch.sdk", "jolt_tpu_torch.native",
         "jolt_tpu_torch.commitment.fixtures", "jolt_tpu_torch.convert",
         "jolt_tpu_torch.subprotocols.grand_product_quarks",
         "jolt_tpu_torch.subprotocols.fixtures", "jolt_tpu_torch.evm.fixtures",
-        "jolt_tpu_torch.evm.gen_r1cs_sol", "jolt_tpu_torch.evm.solidity_vm"}
+        "jolt_tpu_torch.evm.gen_r1cs_sol", "jolt_tpu_torch.evm.solidity_vm",
+        "jolt_tpu_torch.utils.profiling", "jolt_tpu_torch.utils.caches",
+        "jolt_tpu_torch.tracer.bus", "jolt_tpu_torch.tracer.peripherals",
+        "jolt_tpu_torch.field.binius"}
 bad += sorted(f"not imported: {m}" for m in need - set(sys.modules))
 print(len([m for m in sys.modules if m.startswith("jolt_tpu_torch")]))
 sys.exit("loaded: " + ", ".join(bad) if bad else 0)
@@ -103,6 +107,8 @@ _ENTRY_POINTS = {
         [], MockCommitmentScheme()),
     "cli.prove_fib": lambda: cli.prove_fib(1),
     "cli.main prove-fib": lambda: cli.main(["prove-fib", "--n", "1"]),
+    "cli.main prove-fib --profile": lambda: cli.main(
+        ["prove-fib", "--n", "1", "--profile"]),
     "cli.prove_sha2_chain": lambda: cli.prove_sha2_chain(1),
     "cli.main prove-sha2-chain": lambda: cli.main(["prove-sha2-chain"]),
     "cli.prove_guest": lambda: cli.prove_guest("collatz", 3),

@@ -2,9 +2,11 @@
 commit against jolt_tpu's.
 
 - With the mock PCS, at tests/test_quark_gp.py's sizes (B = 2; 2^5 leaves
-  for quark_prove alone, 2^6 and 2^3 with seed 11 for the hybrid), jolt_tpu
-  runs live and the port on the CPU: the transcripts' state_history, every
-  proof field, r_t, h_r_t and the claims must be equal; the port's
+  for quark_prove alone, 2^6 and 2^3 with seed 11 for the hybrid), the
+  port proves on the CPU and jolt_tpu's proofs are read from
+  fixtures/port/quark_mock.json (frozen by scripts/freeze_port_fixtures.py;
+  the `slow` test recomputes them live): the transcripts' state_history,
+  every proof field, r_t, h_r_t and the claims must be equal; the port's
   verifier accepts each proof and rejects it with one value bumped.
 - With HyperKZG, the case of jolt_tpu_torch/subprotocols/fixtures.py
   (B = 2, 2^6 leaves, a 2^8-point SRS) against jolt_tpu's proof frozen in
@@ -19,22 +21,13 @@ commit against jolt_tpu's.
 
 The tolerance is zero.
 """
+import importlib.util
+import json
 from pathlib import Path
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jolt_tpu.commitment import MockCommitmentScheme as JMock
-from jolt_tpu.field import device as jfd
-from jolt_tpu.field import fr_spec as jfr_spec
-from jolt_tpu.poly.opening_proof import \
-    ProverOpeningAccumulator as JProverAcc
-from jolt_tpu.subprotocols.grand_product_quarks import \
-    QuarkGrandProduct as JQuarkGrandProduct
-from jolt_tpu.subprotocols.grand_product_quarks import \
-    quark_prove as j_quark_prove
-from jolt_tpu.transcript import Transcript as JTranscript
 
 from jolt_tpu_torch.commitment.kzg import (kzg_commit,
                                           kzg_commit_grand_product,
@@ -57,10 +50,13 @@ from jolt_tpu_torch.utils import serialization as ser
 from jolt_tpu_torch.utils.ark_proof import _w_gp_proof
 
 ROOT = Path(__file__).resolve().parents[1]
-LABEL = b"test_transcript"
-# name: (quark_prove alone or the hybrid, log2 leaves, seed)
-CASES = {"hybrid_2^3": ("hybrid", 3, 11), "hybrid_2^6": ("hybrid", 6, 9),
-         "quark_2^5": ("quark", 5, 9)}
+LABEL = sfx.QUARK_LABEL
+CASES = sfx.QUARK_MOCK_CASES
+
+
+def _frozen_mock() -> dict:
+    return json.loads((ROOT / "fixtures" / "port" / "quark_mock.json")
+                      .read_text())
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -73,46 +69,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _leaves_u64(log_n: int, seed: int) -> np.ndarray:
-    rng = np.random.default_rng(seed)
-    return rng.integers(1, 1 << 63, size=(2, 1 << log_n), dtype=np.uint64)
-
-
-def _plain(x):
-    """A proof as nested lists of ints, for either package's objects."""
-    if hasattr(x, "v") and hasattr(x, "spec"):
-        return x.v
-    if hasattr(x, "is_infinity") and hasattr(x, "x"):
-        return ("point", x.x, x.y, x.is_infinity)
-    if isinstance(x, (list, tuple)):
-        return [_plain(y) for y in x]
-    if isinstance(x, int) or x is None:
-        return x
-    return {k: _plain(v) for k, v in vars(x).items()}
-
-
-def _prove(pkg: str, kind: str, log_n: int, seed: int) -> dict:
-    """One case proved by jolt_tpu ("jax") or the port ("torch") with the
-    mock PCS; the opening accumulator reduced and proved after it."""
-    vals = _leaves_u64(log_n, seed)
-    if pkg == "jax":
-        spec = jfr_spec()
-        leaves = jfd.to_mont_device(spec, jnp.asarray(jfd.pack_u64(vals)))
-        t, acc, pcs = JTranscript(LABEL), JProverAcc(spec), JMock(spec)
-        qp, cls = j_quark_prove, JQuarkGrandProduct
-    else:
-        spec = fr_spec()
-        leaves = fd.u64_to_mont_device(spec, vals, "cpu")
-        t, acc = Transcript(LABEL), ProverOpeningAccumulator(spec)
-        pcs = MockCommitmentScheme(spec)
-        qp, cls = quark_prove, QuarkGrandProduct
+def _prove(kind: str, log_n: int, seed: int) -> dict:
+    """One case proved by the port with the mock PCS on the CPU; the
+    opening accumulator reduced and proved after it."""
+    vals = sfx.mock_leaves_u64(log_n, seed)
+    spec = fr_spec()
+    leaves = fd.u64_to_mont_device(spec, vals, "cpu")
+    t, acc = Transcript(LABEL), ProverOpeningAccumulator(spec)
+    pcs = MockCommitmentScheme(spec)
     if kind == "quark":
-        proof, r_t, h_r_t = qp(leaves, pcs, acc, t, spec)
+        proof, r_t, h_r_t = quark_prove(leaves, pcs, acc, t, spec)
         claims = [FElt(int(np.prod([int(v) for v in row], dtype=object)
-                           % spec.p), fr_spec()) for row in vals]
+                           % spec.p), spec) for row in vals]
         out = dict(r_t=r_t, h_r_t=h_r_t)
     else:
-        gp = cls.construct(leaves, spec)
+        gp = QuarkGrandProduct.construct(leaves, spec)
         claims = gp.claims()
         proof, r = gp.prove_grand_product(acc, t, pcs)
         out = dict(r=r)
@@ -121,26 +92,44 @@ def _prove(pkg: str, kind: str, log_n: int, seed: int) -> dict:
                 states=t.state_history, acc=acc)
 
 
+@pytest.fixture(scope="module")
+def frozen_mock():
+    return _frozen_mock()
+
+
 @pytest.fixture(scope="module", params=list(CASES))
-def case(request):
+def case(request, frozen_mock):
     kind, log_n, seed = CASES[request.param]
-    return dict(kind=kind, log_n=log_n, jax=_prove("jax", kind, log_n, seed),
-                torch=_prove("torch", kind, log_n, seed))
+    return dict(kind=kind, log_n=log_n, jax=frozen_mock[request.param],
+                torch=_prove(kind, log_n, seed))
 
 
 def test_transcript_proof_and_claims_match_jolt_tpu(case):
-    j, p = case["jax"], case["torch"]
-    assert p["states"] == j["states"]
-    assert _plain(p["proof"]) == _plain(j["proof"])
-    assert _plain(p["claims"]) == _plain(j["claims"])
-    assert _plain(p["reduced"].sumcheck_claims) == \
-        _plain(j["reduced"].sumcheck_claims)
+    j, p = case["jax"], sfx.mock_record(case["torch"])
+    assert sorted(p) == sorted(j)
+    for k in ("states", "proof", "claims", "reduced"):
+        assert p[k] == j[k], k
     keys = ("r_t", "h_r_t") if case["kind"] == "quark" else ("r",)
     for k in keys:
-        assert _plain(p[k]) == _plain(j[k]), k
+        assert p[k] == j[k], k
     if case["kind"] == "hybrid":        # four base layers, fewer if short
-        assert p["proof"].quark is not None
-        assert len(p["proof"].layers) == min(4, case["log_n"] - 1)
+        assert case["torch"]["proof"].quark is not None
+        assert len(case["torch"]["proof"].layers) == \
+            min(4, case["log_n"] - 1)
+
+
+@pytest.mark.slow
+def test_frozen_mock_cases_match_a_live_jolt_tpu_prove():
+    """jolt_tpu proves the three mock cases live (XLA compiles)."""
+    spec = importlib.util.spec_from_file_location(
+        "freeze_port_fixtures", ROOT / "scripts" / "freeze_port_fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    frozen = _frozen_mock()
+    assert sorted(frozen) == sorted(CASES)
+    for name, args in CASES.items():
+        live = json.loads(json.dumps(mod.quark_mock_case(*args)))
+        assert live == frozen[name], name
 
 
 def _verify(case):
@@ -151,7 +140,7 @@ def _verify(case):
     acc = VerifierOpeningAccumulator(pcs, spec)
     if case["kind"] == "quark":
         h_r_t, r_t = quark_verify(proof, p["claims"], acc, t, spec)
-        assert _plain((h_r_t, r_t)) == _plain((p["h_r_t"], p["r_t"]))
+        assert sfx.plain((h_r_t, r_t)) == sfx.plain((p["h_r_t"], p["r_t"]))
     else:
         QuarkGrandProduct.verify_grand_product(proof, p["claims"], acc, t,
                                                spec)
@@ -172,10 +161,10 @@ def test_verifier_accepts_and_rejects_a_bumped_value(case):
 
 
 def test_hybrid_claims_equal_the_dense_grand_product():
-    vals = _leaves_u64(6, 9)
+    vals = sfx.mock_leaves_u64(6, 9)
     leaves = fd.u64_to_mont_device(fr_spec(), vals, "cpu")
-    assert _plain(QuarkGrandProduct.construct(leaves).claims()) == \
-        _plain(BatchedDenseGrandProduct.construct(leaves).claims())
+    assert sfx.plain(QuarkGrandProduct.construct(leaves).claims()) == \
+        sfx.plain(BatchedDenseGrandProduct.construct(leaves).claims())
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,11 @@ by scripts/freeze_port_fixtures.py (a live jolt_tpu prove takes minutes of
 XLA compiles; the `slow` test recomputes them live).  The port's verifier
 must accept each proof and reject it with one opening bumped by one.
 
+Each prove runs with the profiling spans on: every span's name, calls
+and ops count must equal jolt_tpu's, frozen in fixtures/port/fib3_spans.json
+from the mock case (the transcripts above show that the spans change no
+byte).
+
 The proof bytes: each proof's `proof_size_bytes`, and the HyperKZG proof's
 canonical bytes (SHA-256 and length), must equal jolt_tpu's, frozen in
 fixtures/port/fib3_proof_bytes.json; its arkworks bytes must equal
@@ -35,6 +40,7 @@ from jolt_tpu_torch.commitment.mock import MockCommitmentScheme
 from jolt_tpu_torch.field.host import FElt
 from jolt_tpu_torch.field.spec import fr_spec
 from jolt_tpu_torch.subprotocols.sumcheck import VerificationError
+from jolt_tpu_torch.utils import profiling
 from jolt_tpu_torch.utils import serialization as ser
 from jolt_tpu_torch.utils.ark_proof import (deserialize_jolt_proof_structure,
                                             jolt_proof_bytes)
@@ -74,10 +80,18 @@ def fib3(request):
                                     max_input_size=32, max_output_size=32)
     pcs = HyperKZG.setup(fx.SRS_LEN, device="cpu") \
         if case == "hyperkzg" else MockCommitmentScheme()
-    pre = vm.preprocess(rows, pcs, device="cpu")
-    proof, commitments, transcript, acc = vm.prove(io, steps, pre)
+    profiling.reset()
+    profiling.enable()
+    try:
+        pre = vm.preprocess(rows, pcs, device="cpu")
+        proof, commitments, transcript, acc = vm.prove(io, steps, pre)
+    finally:
+        profiling.enable(False)
+    spans = sorted([name, calls, ops]
+                   for name, calls, _, ops in profiling.cumulative())
     yield dict(case=case, vm=vm, pre=pre, proof=proof,
-               commitments=commitments, transcript=transcript, acc=acc)
+               commitments=commitments, transcript=transcript, acc=acc,
+               spans=spans)
     mp.undo()
 
 
@@ -89,6 +103,18 @@ def test_transcript_and_commitments_match_jolt_tpu(fib3):
     for k in want:
         assert got[k].shape == want[k].shape, k
         assert (got[k] == want[k]).all(), k
+
+
+def test_spans_match_jolt_tpus(fib3):
+    """The prove ran with the profiling spans on (and its transcript still
+    equals jolt_tpu's, above): each span's name, calls and ops count equal
+    jolt_tpu's for the mock case's preprocessing and prove, frozen in
+    fixtures/port/fib3_spans.json.  The three cases prove the same shapes,
+    so each gives the same rows."""
+    want = json.loads((ROOT / "fixtures" / "port" / "fib3_spans.json")
+                      .read_text())["rows"]
+    assert len(want) == 12
+    assert fib3["spans"] == want
 
 
 def test_verifier_accepts_and_rejects_a_bumped_opening(fib3):
