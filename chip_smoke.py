@@ -17,14 +17,20 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      splits over two launches; s = 2^15, 2^5) with K3 at B = 110, and
      K2 and K5 on edge residues (0, 1, p - 1, R mod p, ... so that the
      lazy sums cross p and 2p), with K5's lanes holding P + P, P + (-P)
-     and the identity;
+     and the identity; then the device Fiat-Shamir kernels: K8 (the
+     transcript events) against its plain version and the host Transcript
+     over 1,024 chained events (appends of edge scalars, challenges) and
+     at the main path's shapes (a challenge vector of 110, 220 appends),
+     K9 (the sumcheck round) at d = 2 and 3 with the hint and at the full
+     VM's primary degree 8 without it, on edge residues;
   3. the main path begins (launch counts set to 0): HyperKZG setup of the
      2^20-point SRS, generated on the card; its first 2^17 points must equal
      fixtures/srs/srs_131072_6a6f6c74.npz bit for bit;
   4. Surge XOR, nv = 20, C = 4, M = 2^16, operands from default_rng(0) as
      `python -m jolt_tpu_torch.cli surge-bench` draws them: one warm-up
      prove (the main path's launch counts are read after it), verify, a
-     tampered proof must be rejected, two timed proves and a timed verify;
+     tampered proof must be rejected, one timed prove (two until phase 8
+     proved twice) and a timed verify;
   5. reference on a small input: Surge at nv = 10 on the card and on the
      CPU (plain versions) must give the same transcript and commitments,
      and two commitments must equal a host MSM;
@@ -51,13 +57,20 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      and K3 at each batch size, replayed against the plain version),
      accept, tamper rejected, timed verify; the guest's 32
      output bytes must equal hashlib's sha256 iterated 13 times.  The
+     prove runs with device Fiat-Shamir and the chained grand products
+     (the default on the card; K8 and K9 must launch), and then once more
+     with JOLT_TPU_DEVICE_FS=0 (every round's transcript on the host): its
+     state_history must equal the first prove's event for event, and both
+     proves' seconds are printed.  The first
      prove runs with the profiling spans on (utils/profiling.py; each
      syncs the card on entry and exit): their table is printed, and each
      of the seven top-level prove spans (witness_generation,
      JoltPolynomials::commit, BytecodeProof::prove_memory_checking,
      InstructionLookupsProof::prove, ReadWriteMemoryProof::prove,
      UniformSpartanProof::prove, reduce_and_prove) must fire once, their
-     sum lying within 90-100 % of the prove's seconds;
+     sum lying within 90-100 % of the prove's seconds, and the chained
+     grand products' spans BatchedDenseGP::chained and ToggledGP::chained
+     must be among them;
   9. reference at full width: rv32i_vm() (M = 2^16) with the mock PCS on
      the card proves each frozen case of jolt_tpu_torch/vm/fixtures.py
      (fibonacci(8), the M-extension program, a program of every load and
@@ -125,7 +138,8 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      --n 8 --pcs hyperkzg --profile` in a child process on the card must
      exit 0; its DIR/trace.json (torch.profiler, CPU and CUDA) must parse
      as JSON and hold the span names (the seven top-level prove spans,
-     BatchedDenseGP::layer, Sumcheck::prove_arbitrary) and at least one
+     BatchedDenseGP::chained, ToggledGP::chained,
+     Sumcheck::prove_arbitrary) and at least one
      mont_mul_kernel (K1) kernel event; the child's span table is
      printed.
 Phase 1 also builds the native tracer and Keccak (g++) from their sources
@@ -134,7 +148,9 @@ and prints the compiler and the libraries' paths.  Then a {"kernels":
 {...}}.  Imports nothing of JAX or jolt_tpu.
 K7 (jac_double) lies on no VM or Surge path (see csrc/point.cu): phase 2
 holds it against its plain version, and those paths' launch checks exempt
-it; phase 11's Hyrax commit launches it.
+it; phase 11's Hyrax commit launches it.  Phases 3-10, 12 (the quark
+path) and 13-15 run with device Fiat-Shamir, the default on the card, so
+K8 and K9 launch on them.
 """
 from __future__ import annotations
 
@@ -164,18 +180,32 @@ FIB_N, FIB_STEPS, FIB_T, FIB_M = 3275, 16380, 1 << 14, 1 << 16
 SHA2_ITERS, SHA2_STEPS, SHA2_T = 13, 62413, 1 << 16
 SHA3_ITERS, SHA3_STEPS, SHA3_T = 2, 44479, 1 << 16
 GP_KERNELS = ("gp_pair_evals", "gp_pair_bind")
+FS_KERNELS = ("transcript_events", "fs_round")   # K8, K9: device Fiat-Shamir
+KECCAK_OPS = 24 * 210              # 32-bit operations of one Keccak-f[1600]
+#   as csrc/keccak.cu runs it: per round theta 110 (xor5 of 5 columns, 5
+#   rotl-1, 25 xors), rho 48 (24 rotations, two funnel shifts each), chi 50
+#   (one LOP3 per 32-bit half), iota 2
+KECCAK_DEPTH = 24 * 7              # dependent instruction levels of one
+#   permutation: per round 2 (xor5 as two LOP3), 2 (rotl-1, xor), 1 (a ^=
+#   d), 1 (rho), 1 (chi and iota as LOP3s)
+PRODUCT_DEPTH = 8 * 2 * 9          # dependent levels of one Montgomery
+#   product (csrc/field.cuh): per word b_i a row and a reduction, each a
+#   carry chain of 9 multiply-adds
+DEP_CYCLES = 4                     # latency of a dependent integer
+#   instruction on the H100's SMs (fixed-latency ALU ops)
 REGS_PER_SM, SMEM_PER_SM, MAX_WARPS_PER_SM = 65536, 228 * 1024, 64
 OFF_PATH = {"jac_double": "no VM or Surge prove path of either package "
             "launches jac_double_pallas (K7); phase 11's Hyrax commit does "
             "(the windowed MSM's Horner doublings)"}
 PCS_LOGN = 20
 VM_KERNELS = ("mont_mul", "mont_mul_bl", "gp_pair_evals", "gp_pair_bind",
-              "proj_cadd")
+              "proj_cadd") + FS_KERNELS
 PCS_KERNELS = ("mont_mul", "proj_cadd", "jac_add", "jac_double")
 HYRAX_KERNELS = ("mont_mul", "jac_add", "jac_double")
 KZG_KERNELS = ("mont_mul", "proj_cadd")
 QUARK_B, QUARK_LOGN, QUARK_SRS = 16, 20, 1 << 16
-QUARK_KERNELS = ("mont_mul", "gp_pair_evals", "gp_pair_bind", "proj_cadd",
+QUARK_KERNELS = ("mont_mul", "gp_pair_evals", "gp_pair_bind", "fs_round",
+                 "proj_cadd",
                  "jac_add")
 GP_COMMIT_LOGN = 20
 GP_COMMIT_KERNELS = ("mont_mul", "proj_cadd", "jac_add")
@@ -197,8 +227,27 @@ PROVE_SPANS = ("witness_generation", "JoltPolynomials::commit",
 SPAN_COVER = (0.90, 1.00)
 # phase 15: the CLI's traced prove, in a child process on the card
 TRACE_CMD = ("prove-fib", "--n", "8", "--pcs", "hyperkzg", "--profile")
-TRACE_SPANS = PROVE_SPANS + ("BatchedDenseGP::layer",
+TRACE_SPANS = PROVE_SPANS + ("BatchedDenseGP::chained", "ToggledGP::chained",
                              "Sumcheck::prove_arbitrary")
+CHAIN_SPANS = ("BatchedDenseGP::chained", "ToggledGP::chained")
+
+
+def fs_work(name: str, args) -> tuple[int, int, int]:
+    """(bytes, Montgomery products, Keccak permutations) of one K8 or K9
+    call: K8 appends n scalars (a product each, to the canonical form) and
+    draws c challenges (a product each, to Montgomery form), n + c
+    permutations; K9 at degree d interpolates ((d + 1)^2 products), appends
+    d coefficients and two labels, draws one challenge and runs Horner (d
+    products): 3 + d permutations."""
+    if name == "transcript_events":
+        from jolt_tpu_torch.utils import keccak_device as kd
+        _, _, scalars, segments = args
+        n, c = kd._check_segments(segments, 0 if scalars is None
+                                  else scalars.shape[1])
+        return 2 * 9 * 8 + 64 * (n + c), n + c, n + c
+    _, evals, _, _, d, _ = args
+    return (2 * 9 * 8 + 64 * (evals.shape[1] + 1 + (d + 1) ** 2 + d + 2),
+            (d + 1) ** 2 + d + 1 + d, 3 + d)
 
 
 def work(name: str, args) -> tuple[int, int]:
@@ -207,7 +256,10 @@ def work(name: str, args) -> tuple[int, int]:
     the products of the function itself: K2 5B + 3 per pair of B circuits,
     K3 2B + 1, K5 12 per add (RCB16 Alg. 7), K6 16 (an add; the doubling
     and infinity lanes of phase 2 are 2^-14 of its lanes), K7 7
-    (dbl-2009-l)."""
+    (dbl-2009-l); K8 and K9 as fs_work (their Keccak operations are added
+    to the operations by `compare`)."""
+    if name in FS_KERNELS:
+        return fs_work(name, args)[:2]
     tb = lambda *ts: 4 * sum(t.numel() for t in ts)
     if name == "mont_mul":
         import torch
@@ -254,7 +306,7 @@ def resident_warps(regs: int, smem: int, threads: int) -> int:
     """Warps per SM that the registers and shared memory of a block of
     `threads` leave room for (registers allocated per warp in units of
     256; 1 KB of shared memory reserved per block)."""
-    wpb = threads // 32
+    wpb = -(-threads // 32)                    # a one-thread block: a warp
     per_warp = -(-regs * 32 // 256) * 256
     blocks = min(REGS_PER_SM // per_warp // wpb,
                  SMEM_PER_SM // (smem + 1024), MAX_WARPS_PER_SM // wpb, 32)
@@ -386,8 +438,10 @@ def main() -> None:
         ProverOpeningAccumulator, VerifierOpeningAccumulator)
     from jolt_tpu_torch.subprotocols.grand_product import \
         BatchedDenseGrandProduct
+    from jolt_tpu_torch.subprotocols import fs_device as fsd
     from jolt_tpu_torch.subprotocols.grand_product_quarks import \
         QuarkGrandProduct
+    from jolt_tpu_torch.utils import keccak_device as kd
     from jolt_tpu_torch.utils import profiling
     from jolt_tpu_torch.utils import serialization as ser
     from jolt_tpu_torch.curve.bn254 import G1Affine, g1_msm_host
@@ -519,17 +573,21 @@ def main() -> None:
         "gp_pair_bind": (fk.gp_pair_bind, fk.gp_pair_bind_plain),
         "proj_cadd": (ck.proj_cadd, ck.proj_cadd_plain),
         "jac_add": (ck.jac_add, ck.jac_add_plain),
-        "jac_double": (ck.jac_double, lambda p: ck.jac_double_plain(*p))}
+        "jac_double": (ck.jac_double, lambda p: ck.jac_double_plain(*p)),
+        "transcript_events": (kd.transcript_events,
+                              kd.transcript_events_plain),
+        "fs_round": (fsd.fs_round, fsd.fs_round_plain)}
     results = {}                    # {kernel: {phase: row}}
     more = {}                       # {kernel: [rows at further shapes]}
+    launch = {}                     # the launch floor, measured with K8
 
     def compare(phase, name, shape, args, record=True):
         wrapper, plain = KERNEL[name]
         got = as_tuple(wrapper(*args))
         want = as_tuple(plain(*args))
         torch.cuda.synchronize()
-        err = max(int((g.long() - w.long()).abs().max()) for g, w in
-                  zip(got, want))
+        err = max((int((g.long() - w.long()).abs().max()) for g, w in
+                   zip(got, want) if g.numel()), default=0)
         if err != 0 or any(g.shape != w.shape for g, w in zip(got, want)):
             fail(f"{name} at {shape}: kernel and plain version differ (max "
                  f"abs err {err})")
@@ -539,6 +597,8 @@ def main() -> None:
         nbytes, products = work(name, args)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         muls = products * MULS_PER_PRODUCT
+        if name in FS_KERNELS:          # and the Keccak's 32-bit operations
+            muls += fs_work(name, args)[2] * KECCAK_OPS
         ops_ms = muls / imad_rate * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -550,6 +610,17 @@ def main() -> None:
         row = dict(phase=phase, shape=shape, max_abs_err=err, ms=kernel_ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
+        if name in FS_KERNELS:
+            # one thread's dependent chain: what bounds K8 and K9 in fact
+            _, prods, perms = fs_work(name, args)
+            row["latency_bound_ms"] = (
+                (perms * KECCAK_DEPTH + prods * PRODUCT_DEPTH) * DEP_CYCLES
+                / clock_hz * 1e3 + launch["ms"])
+            row["launch_ms"] = launch["ms"]
+            print(f"{phase}: {name} shape={shape} latency_bound_ms="
+                  f"{row['latency_bound_ms']:.4f} ({perms} permutations, "
+                  f"{prods} products, one launch {launch['ms']:.4f} ms)",
+                  flush=True)
         if record:
             results.setdefault(name, {})[phase] = row
         else:                           # more shapes, kept beside the row
@@ -659,6 +730,72 @@ def main() -> None:
     compare("phase 2", "jac_double", "[16,2^20] x 3 -> 3 Fq", (pt,))
     del pd, pt
     torch.cuda.empty_cache()
+    # K8, K9: the device Fiat-Shamir kernels.  The launch floor: a
+    # one-element kernel, launched back to back
+    tiny = torch.zeros(1, dtype=torch.int64, device=dev)
+    launch["ms"] = event_ms(lambda: tiny.add_(1), 100)
+    print(f"phase 2: one launch (a one-element kernel, back to back) "
+          f"{launch['ms']:.4f} ms", flush=True)
+    # K8 over 1,024 chained events, launch by launch against its plain
+    # version on the card and the host transcript
+    host8 = Transcript(b"chip_smoke K8")
+    st8 = fsd.state_to_device(host8, dev)
+    rng8 = random.Random(8)
+    pool8 = [0, 1, FR.p - 1, FR.r]
+    done8 = n8 = big8 = 0
+    t0 = time.perf_counter()
+    while done8 < 1024:
+        segs = [(rng8.choice((kd.APPEND, kd.CHALLENGE)), rng8.randrange(17))
+                for _ in range(rng8.randrange(1, kd.MAX_SEGS + 1))]
+        n_app = sum(c for k, c in segs if k == kd.APPEND)
+        vals = [rng8.choice(pool8) if rng8.random() < 0.5
+                else rng8.randrange(FR.p) for _ in range(max(n_app, 1))]
+        sc8 = fd.ints_to_device(FR, vals, dev)
+        got8 = kd.transcript_events(FR, st8, sc8, segs)
+        want8 = kd.transcript_events_plain(FR, st8, sc8, segs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g.long(), w.long())
+                   for g, w in zip(got8, want8)):
+            fail(f"transcript_events: launch {n8} differs from its plain "
+                 "version")
+        col, chals = 0, []
+        for kind, count in segs:
+            for _ in range(count):
+                if kind == kd.APPEND:
+                    host8.append_scalar(FElt(vals[col], FR))
+                    col += 1
+                else:
+                    chals.append(host8.challenge_scalar().v)
+                    big8 += int.from_bytes(host8.state, "big") >= 5 * FR.p
+        if fsd.state_bytes(got8[0]) != (host8.state, host8.n_rounds) or \
+                [int(v) for v in fd.device_to_ints(FR, got8[1]).tolist()] \
+                != chals:
+            fail(f"transcript_events: launch {n8} differs from the host "
+                 "transcript")
+        st8 = got8[0]
+        done8 += sum(c for _, c in segs)
+        n8 += 1
+    if big8 == 0:
+        fail("transcript_events: no challenge digest in [5p, 2^256) was met")
+    print(f"phase 2: transcript_events over {done8} chained events in {n8} "
+          f"launches == its plain version == the host transcript ({big8} "
+          f"challenge digests in [5p, 2^256); "
+          f"{time.perf_counter() - t0:.2f} s)", flush=True)
+    # K8 at the main path's shapes: the full VM's toggled GP draws 110
+    # coefficients and appends 220 claims per layer
+    compare("phase 2", "transcript_events", "110 challenges (state [9])",
+            (FR, st8, None, [(kd.CHALLENGE, 110)]))
+    compare("phase 2", "transcript_events", "220 appends of [16,220] edge "
+            "residues", (FR, st8, edge_fe(FR, 220), [(kd.APPEND, 220)]),
+            record=False)
+    # K9: the GKR and toggle rounds (d = 3), the opening reduction (d = 2),
+    # both with the hint, and the full VM's primary sumcheck (d = 8)
+    prev9 = edge_fe(FR, 1)[:, 0]
+    for d9, hint9, n9 in ((3, True, 3), (2, True, 2), (8, False, 9)):
+        compare("phase 2", "fs_round", f"d = {d9}, evals [16,{n9}] edge "
+                f"residues" + (", the hint" if hint9 else ""),
+                (FR, edge_fe(FR, n9), prev9, st8, d9, hint9),
+                record=d9 == 3)
 
     phase_done("phase 2")
 
@@ -702,14 +839,12 @@ def main() -> None:
     else:
         fail("a proof with its claimed evaluation bumped by one verified")
     proof.primary_sumcheck.claimed_evaluation = good
-    prove_s, prove_counts = [], None
-    for _ in range(2):
-        nat.reset_launch_counts()
-        t0 = time.perf_counter()
-        proof, transcript, _ = surge_prove(pre, pcs, x, y)
-        torch.cuda.synchronize()
-        prove_s.append(time.perf_counter() - t0)
-        prove_counts = nat.launch_counts()
+    nat.reset_launch_counts()
+    t0 = time.perf_counter()
+    proof, transcript, _ = surge_prove(pre, pcs, x, y)
+    torch.cuda.synchronize()
+    prove_s = [time.perf_counter() - t0]
+    prove_counts = nat.launch_counts()
     t0 = time.perf_counter()
     for _ in range(3):
         surge_verify(pre, proof, debug_transcript=transcript)
@@ -761,7 +896,9 @@ def main() -> None:
     # largest call on the card (with `by_batch`, K2's and K3's largest at
     # each batch size); the copies are replayed against the plain versions.
     sites = {name: (fk if name in ("mont_mul", "mont_mul_bl",
-                                   "gp_pair_evals", "gp_pair_bind") else cd)
+                                   "gp_pair_evals", "gp_pair_bind")
+                    else kd if name == "transcript_events"
+                    else fsd if name == "fs_round" else cd)
              for name in KERNEL}
 
     def tensors(x):
@@ -835,13 +972,16 @@ def main() -> None:
                    largest.values() for t in tensors(args)) / 1e9
 
     def vm_path(phase, label, vm, program, want_steps, want_T,
-                by_batch=False, spans=False, **trace_args):
+                by_batch=False, spans=False, host_fs=False, **trace_args):
         """Trace, set up, one prove (recorded, timed, then replayed),
         accept, tamper, timed verify; returns the launch counts of the
         main path (setup + the prove) and of the prove, and the program's
         I/O.  With `spans`, the prove runs with the profiling spans on:
         their table is printed, and each of PROVE_SPANS must fire once and
-        together cover SPAN_COVER of the prove's seconds."""
+        together cover SPAN_COVER of the prove's seconds, and the chained
+        grand products' spans must be there.  With `host_fs`, a second
+        prove follows with JOLT_TPU_DEVICE_FS=0 (spans as the first), whose
+        state_history must equal the first prove's."""
         t0 = time.perf_counter()
         steps, io, rows = trace_program(program, vm, **trace_args)
         trace_s = time.perf_counter() - t0
@@ -870,7 +1010,7 @@ def main() -> None:
         prove_v = time.perf_counter() - t0
         profiling.enable(False)
         if spans:
-            span_check(phase, label, prove_v)
+            span_check(phase, label, prove_v, CHAIN_SPANS)
         peak, held = torch.cuda.max_memory_allocated() / 1e9, held_gb(largest)
         counts = nat.launch_counts()
         stop_recording()
@@ -898,6 +1038,37 @@ def main() -> None:
         t0 = time.perf_counter()
         vm.verify(pre_v, proof, com)
         verify_v = time.perf_counter() - t0
+        if host_fs:
+            os.environ["JOLT_TPU_DEVICE_FS"] = "0"
+            nat.reset_launch_counts()
+            profiling.reset()
+            profiling.enable(spans)
+            try:
+                t0 = time.perf_counter()
+                _, _, tr_h, _ = vm.prove(io, steps, pre_v)
+                torch.cuda.synchronize()
+                prove_h = time.perf_counter() - t0
+            finally:
+                profiling.enable(False)
+                del os.environ["JOLT_TPU_DEVICE_FS"]
+            counts_h = nat.launch_counts()
+            if spans:
+                span_check(phase, f"{label} JOLT_TPU_DEVICE_FS=0", prove_h,
+                           ("BatchedDenseGP::layer",))
+            if tr_h.state_history != tr.state_history:
+                fail(f"{label}: the JOLT_TPU_DEVICE_FS=0 prove's transcript "
+                     "differs from the device Fiat-Shamir prove's")
+            if any(counts_h[k] for k in FS_KERNELS):
+                fail(f"{label}: the JOLT_TPU_DEVICE_FS=0 prove launched "
+                     f"{FS_KERNELS}")
+            print(f"{phase}: {label} with device Fiat-Shamir and the chain "
+                  f"(the default): prove_s={prove_v:.3f}; with "
+                  f"JOLT_TPU_DEVICE_FS=0: prove_s={prove_h:.3f}; the two "
+                  f"state_histories equal, event for event "
+                  f"({len(tr.state_history)} states) [{card}]", flush=True)
+            print(f"{phase}: launches of the JOLT_TPU_DEVICE_FS=0 prove "
+                  f"{json.dumps(counts_h)}", flush=True)
+            del tr_h
         print(f"{phase}: Jolt VM {label} T=2^{T.bit_length() - 1} C=4 "
               f"M=2^{vm.M.bit_length() - 1} HyperKZG: prove_s={prove_v:.3f} "
               f"verify_s={verify_v:.3f} peak_mem_GB={peak:.2f} (of which "
@@ -909,9 +1080,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         return counts, prove_counts, io
 
-    def span_check(phase, label, prove_s):
+    def span_check(phase, label, prove_s, need=()):
         """Print the span table of one prove, and fail unless each of
-        PROVE_SPANS fired once and they cover SPAN_COVER of its seconds."""
+        PROVE_SPANS fired once, they cover SPAN_COVER of its seconds, and
+        each span of `need` fired."""
         rows = {name: (calls, secs, ops)
                 for name, calls, secs, ops in profiling.cumulative()}
         print(f"{phase}: the span table of the {label} prove [{card}]:",
@@ -933,6 +1105,9 @@ def main() -> None:
             fail(f"{phase}: the top-level prove spans cover "
                  f"{100 * share:.2f} % of the prove, outside "
                  f"{SPAN_COVER}")
+        absent = [n for n in need if rows.get(n, (0,))[0] < 1]
+        if absent:
+            fail(f"{phase}: {label}: spans that did not fire: {absent}")
 
     # -- phase 6: the mini VM, fibonacci at T = 2^14 ----------------------
     fib_counts, fib_prove_counts, _ = vm_path(
@@ -973,7 +1148,7 @@ def main() -> None:
     sha2_counts, sha2_prove_counts, io8 = vm_path(
         "phase 8", f"sha2-chain({SHA2_ITERS})", rv32i_vm(),
         sha2_chain_program(SHA2_ITERS), SHA2_STEPS, SHA2_T, by_batch=True,
-        spans=True, inputs=cli.SHA2_INPUT)
+        spans=True, host_fs=True, inputs=cli.SHA2_INPUT)
     out8 = bytes(io8.outputs)[:32]
     if out8 != sha2_chain_expected(cli.SHA2_INPUT, SHA2_ITERS):
         fail(f"sha2-chain({SHA2_ITERS}): the guest's output {out8.hex()} is "
@@ -1607,6 +1782,9 @@ def main() -> None:
             "launches_gp_commit_path": gpc_counts[k.name],
             "launches_evm_fixtures": evm_counts[k.name],
             "launches_scaffold_prove": scaffold_counts.get(k.name, 0)}
+        for key in ("latency_bound_ms", "launch_ms"):
+            if key in r:
+                row[key] = r[key]
         row.update(usage[k.name])
         if k.name in more:
             row["more_shapes"] = more[k.name]

@@ -34,6 +34,15 @@ def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
 
 
+def fs_state_from_jax(words, n_rounds, device="cpu") -> torch.Tensor:
+    """jolt_tpu's device transcript state (the state's LE uint32[8] words
+    and its uint32 count, as numpy or array-likes) -> the port's int64 [9]
+    state tensor (subprotocols/fs_device.py)."""
+    w = np.asarray(words, dtype=np.uint32).reshape(8).astype(np.int64)
+    n = int(np.asarray(n_rounds, dtype=np.uint32))
+    return torch.tensor([*w.tolist(), n], dtype=torch.int64, device=device)
+
+
 def prover_key_from_numpy(X, Y, Z, device="cpu") -> KZGProverKey:
     """jolt_tpu's KZGProverKey.g1_jac (X, Y, Z) as numpy -> the port's key."""
     pts = tuple(limbs_from_numpy(t, device) for t in (X, Y, Z))

@@ -226,7 +226,9 @@ gp_pair_bind_kernel(const int32_t* __restrict__ l,
                     int32_t* __restrict__ nr, int32_t* __restrict__ neq, int B,
                     long long h, long long l_bs, long long l_ls,
                     long long r_bs, long long r_ls, long long eq_ls,
-                    jt::Fe rc, jt::Field F) {
+                    jt::Fe rc, const int32_t* __restrict__ rc_dev,
+                    jt::Field F) {
+  if (rc_dev != nullptr) rc = jt::load_limbs(rc_dev, 1);
   const long long total = (2LL * B + 1) * h;
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -284,14 +286,16 @@ extern "C" int jt_gp_pair_evals(const int32_t* l, const int32_t* r,
   return (int)cudaGetLastError();
 }
 
-// K3.  rc: the challenge's Montgomery form as 8 words, by value.
+// K3.  The challenge's Montgomery form: rc_words, 8 words by value, or,
+// where rc_dev is not null, its 16 limbs on the card (a challenge that the
+// device Fiat-Shamir round K9 drew, read with no host sync).
 extern "C" int jt_gp_pair_bind(const int32_t* l, const int32_t* r,
                                const int32_t* eq, int32_t* nl, int32_t* nr,
                                int32_t* neq, long long B, long long h,
                                long long l_bs, long long l_ls, long long r_bs,
                                long long r_ls, long long eq_ls,
-                               const uint32_t* rc_words, const uint32_t* field,
-                               void* stream) {
+                               const uint32_t* rc_words, const int32_t* rc_dev,
+                               const uint32_t* field, void* stream) {
   if (B < 1 || h < 1) return (int)cudaErrorInvalidValue;
   const jt::Field F = jt::make_field(field);
   jt::Fe rc;
@@ -301,6 +305,6 @@ extern "C" int jt_gp_pair_bind(const int32_t* l, const int32_t* r,
   gp_pair_bind_kernel<<<jt_blocks(total, threads), threads, 0,
                         (cudaStream_t)stream>>>(l, r, eq, nl, nr, neq, (int)B,
                                                 h, l_bs, l_ls, r_bs, r_ls,
-                                                eq_ls, rc, F);
+                                                eq_ls, rc, rc_dev, F);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,8 @@ falls back from the card to the plain version.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _native as nat
@@ -40,7 +42,8 @@ GP_PAIR_EVALS = nat.CudaKernel(
     "gp_pair_evals_kernel", 256)
 GP_PAIR_BIND = nat.CudaKernel(
     "gp_pair_bind", "gp_pair", "jt_gp_pair_bind",
-    [nat.vptr] * 6 + [nat.i64] * 7 + [nat.u32p, nat.u32p, nat.vptr],
+    [nat.vptr] * 6 + [nat.i64] * 7 + [nat.u32p, nat.vptr, nat.u32p,
+                                       nat.vptr],
     "jolt_tpu/field/pallas_mont.py:769 gp_pair_bind_pallas",
     "gp_pair_bind_kernel", 256)
 
@@ -290,22 +293,30 @@ def gp_pair_bind_plain(spec: FieldSpec, l, r, eq, r_chal):
 def gp_pair_bind(spec: FieldSpec, l: torch.Tensor, r: torch.Tensor,
                  eq: torch.Tensor, r_chal: torch.Tensor):
     """new = lo + r * (hi - lo) on contiguous halves of l, r [B, 16, s] and
-    eq [16, s].  r_chal: Montgomery limbs [16], passed to the kernel by
-    value (hand it a CPU tensor: a CUDA one costs a sync to read)."""
+    eq [16, s].  r_chal: Montgomery limbs [16].  A CPU r_chal goes to the
+    kernel by value; a CUDA one (a challenge drawn on the card by device
+    Fiat-Shamir) is read by the kernel, with no host sync."""
     _check_pair("gp_pair_bind", l, r, eq)
     if _all_cpu(l, r, eq):
         return gp_pair_bind_plain(spec, l, r, eq, r_chal)
     nat.require_cuda("gp_pair_bind", l, r, eq)
     B, _, s = l.shape
     h = s // 2
-    limbs = [int(v) for v in r_chal.reshape(L).tolist()]
-    rc = nat.words(limbs[2 * k] | (limbs[2 * k + 1] << 16) for k in range(8))
+    rc_dev = ctypes.c_void_p(None)
+    if r_chal.device.type == "cpu":
+        limbs = [int(v) for v in r_chal.reshape(L).tolist()]
+        rc = nat.words(limbs[2 * k] | (limbs[2 * k + 1] << 16)
+                       for k in range(8))
+    else:
+        nat.require_cuda("gp_pair_bind", l, r_chal)
+        r_chal = r_chal.reshape(L).contiguous()
+        rc, rc_dev = nat.words([0] * 8), nat.ptr(r_chal)
     nl = torch.empty((B, L, h), dtype=torch.int32, device=l.device)
     nr = torch.empty((B, L, h), dtype=torch.int32, device=l.device)
     neq = torch.empty((L, h), dtype=torch.int32, device=l.device)
     GP_PAIR_BIND.launch(
         nat.ptr(l), nat.ptr(r), nat.ptr(eq), nat.ptr(nl), nat.ptr(nr),
         nat.ptr(neq), B, h, l.stride(0), l.stride(1), r.stride(0),
-        r.stride(1), eq.stride(0), rc, nat.words(spec.words32()),
+        r.stride(1), eq.stride(0), rc, rc_dev, nat.words(spec.words32()),
         nat.stream(nl))
     return nl, nr, neq

@@ -10,8 +10,10 @@ one batching sumcheck reduces them to a single PCS opening:
                     then the gamma-powers joint polynomial opened once
   verifier mirror:  homomorphic commitment combination + claim checks
 
-The port runs jolt_tpu's host Fiat-Shamir branch: each round pulls the
-active pairs' two evaluations and binds on the device.
+With host Fiat-Shamir each round pulls the active pairs' two evaluations
+and binds on the device; with device Fiat-Shamir (the default for CUDA
+tensors, grand_product._use_device_fs) the whole reduction runs on the
+device and the host replays it once (`_prove_reduction_device_fs`).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
 from ..poly.mle import bind_top, eq_evaluate_host
 from ..poly.unipoly import CompressedUniPoly, UniPoly
+from ..subprotocols import fs_device as fsd
+from ..subprotocols.grand_product import _use_device_fs
 from ..subprotocols.sumcheck import SumcheckInstanceProof, VerificationError
 from ..transcript import Transcript
 
@@ -107,6 +111,9 @@ class ProverOpeningAccumulator:
         for co, o in zip(coeffs, self.openings):
             diff = max_num_vars - len(o.opening_point)
             e = e + FElt(1 << diff, spec) * o.claim * co
+        if _use_device_fs(self.openings[0].polynomial.device):
+            return self._prove_reduction_device_fs(coeffs, e, max_num_vars,
+                                                   transcript)
 
         r: list[FElt] = []
         compressed: list[CompressedUniPoly] = []
@@ -141,6 +148,55 @@ class ProverOpeningAccumulator:
             e = round_poly.evaluate(r_j)
             compressed.append(cpoly)
 
+        claims = [FElt(int(v), spec) for v in fd.device_to_ints(
+            spec, torch.stack([b[..., 0] for b in bound], dim=1)).tolist()]
+        return SumcheckInstanceProof(compressed), r, claims
+
+    def _prove_reduction_device_fs(self, coeffs: list[FElt], e: FElt,
+                                   max_num_vars: int, transcript: Transcript):
+        """The reduction sumcheck with the Fiat-Shamir chain on the device
+        (jolt_tpu's opening_proof.py:254-380, shrinking instead of masked):
+        each round's quadratic evaluations, batched with the coefficients
+        and the not-yet-active claims' contribution (a host constant per
+        round, folded in as a device scalar), go to K9 with no host sync;
+        one pull and one host replay at the end."""
+        spec = self.spec
+        dev = self.openings[0].polynomial.device
+        coeffs_dev = fd.ints_to_device(spec, [c.v for c in coeffs], dev)
+        inacts = []
+        for rnd in range(max_num_vars):
+            remaining = max_num_vars - rnd
+            inact = FElt(0, spec)
+            for co, o in zip(coeffs, self.openings):
+                if remaining > len(o.opening_point):
+                    rem_vars = remaining - len(o.opening_point) - 1
+                    inact = inact + FElt(1 << rem_vars, spec) * o.claim * co
+            inacts.append(inact.v)
+        inacts_dev = fd.ints_to_device(spec, inacts, dev)       # [16, R]
+        state = fsd.state_to_device(transcript, dev)
+        prev = fd.scalar_to_device(spec, e.v, dev)
+        bound = [o.polynomial for o in self.openings]
+        bound_eq = [o.eq_poly for o in self.openings]
+        comps = []
+        for rnd in range(max_num_vars):
+            remaining = max_num_vars - rnd
+            active = [i for i, o in enumerate(self.openings)
+                      if remaining <= len(o.opening_point)]
+            pairs = torch.stack([_quadratic_evals(spec, bound[i], bound_eq[i])
+                                 for i in active], dim=1)      # [16, A, 2]
+            ca = torch.cat([coeffs_dev[:, i:i + 1] for i in active], dim=1)
+            evals = fd.fadd(spec, fd.fsum(spec, fd.fmul(
+                spec, ca[:, :, None], pairs), axis=0),
+                inacts_dev[:, rnd:rnd + 1])                     # [16, 2]
+            comp, rj, prev, state = fsd.fs_round(spec, evals, prev, state,
+                                                 2, True)
+            for i in active:
+                bound[i] = bind_top(spec, bound[i], rj)
+                bound_eq[i] = bind_top(spec, bound_eq[i], rj)
+            comps.append(comp)
+        compressed, r = fsd.replay_and_check(
+            spec, fd.device_to_ints(spec, torch.stack(comps, dim=1)).tolist(),
+            transcript, state, CompressedUniPoly, "reduce_and_prove")
         claims = [FElt(int(v), spec) for v in fd.device_to_ints(
             spec, torch.stack([b[..., 0] for b in bound], dim=1)).tolist()]
         return SumcheckInstanceProof(compressed), r, claims

@@ -13,16 +13,29 @@ sit at (i, i + s/2): the round kernels (K2 evals, K3 bind) read contiguous
 halves and the bind outputs are the next round's layers.  Sums mod p do
 not depend on order, so every transcript byte equals the reference's.
 
-The port runs jolt_tpu's CPU path (`_prove_dense_layers`,
-grand_product.py:739, unmasked and shrinking) with every layer and every
-round on the device, down to pair size 2; the TPU-only mechanisms (masked
-fixed-shape rounds, class-buffered trees, host tails, device Fiat-Shamir)
-stay behind.  The toggled grand product (Lasso's flag-gated read/write
-multisets, grand_product.rs:1049-1546) adds its toggle layer below the
-dense layers, also on the device to the last round.
+The port runs jolt_tpu's unmasked, shrinking rounds (`_prove_dense_layers`,
+grand_product.py:739) with every layer and every round on the device, down
+to pair size 2; the TPU-only mechanisms (masked fixed-shape rounds,
+class-buffered trees, host tails) stay behind.  The toggled grand product
+(Lasso's flag-gated read/write multisets, grand_product.rs:1049-1546) adds
+its toggle layer below the dense layers, also on the device to the last
+round.
+
+Fiat-Shamir (jolt_tpu's JOLT_TPU_DEVICE_FS and JOLT_TPU_CHAIN, with the
+same meanings; both default on where the prover's tensors are on a CUDA
+device and off on the CPU):
+  - host: each round pulls its evaluations and uploads its challenge;
+  - device (`_use_device_fs`): each layer's rounds run K2 -> K9 -> K3 with
+    no host sync (subprotocols/fs_device.py), one pull per layer;
+  - chained (`_use_chain`): a whole grand product also draws its batching
+    coefficients, builds its eq tables and appends its claims on the
+    device (K8), with one pull at the end and one host replay, which must
+    reach the device chain's state byte for byte.
+Every mode gives the same transcript and proof.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
@@ -36,6 +49,7 @@ from ..poly.mle import bitrev_indices, eq_evals_device_br
 from ..poly.unipoly import CompressedUniPoly, UniPoly
 from ..transcript import Transcript
 from ..utils.profiling import span
+from . import fs_device as fsd
 from .sumcheck import SumcheckInstanceProof, VerificationError
 
 
@@ -55,6 +69,30 @@ class BatchedGrandProductProof:
 # ---------------------------------------------------------------------------
 # device layers
 # ---------------------------------------------------------------------------
+
+def _env_switch(name: str):
+    """An environment switch: None when unset, else on unless "0" or ""."""
+    v = os.environ.get(name)
+    return None if v is None else v not in ("0", "")
+
+
+def _use_device_fs(device) -> bool:
+    """Device-resident Fiat-Shamir for every sumcheck-shaped prover.
+    JOLT_TPU_DEVICE_FS=1/0 overrides; the default is on for CUDA tensors
+    (where it saves a host sync per round) and off on the CPU."""
+    v = _env_switch("JOLT_TPU_DEVICE_FS")
+    return torch.device(device).type == "cuda" if v is None else v
+
+
+def _use_chain(device) -> bool:
+    """Fully device-chained grand products (one state upload, one pull).
+    JOLT_TPU_CHAIN=1/0 overrides; the default is on where device
+    Fiat-Shamir is on by default, for CUDA tensors."""
+    v = _env_switch("JOLT_TPU_CHAIN")
+    if v is not None:
+        return v
+    return torch.device(device).type == "cuda" and _use_device_fs(device)
+
 
 def _tree_level(spec: FieldSpec, layer: torch.Tensor) -> torch.Tensor:
     """One product-tree level over an INTERLEAVED [16, B, n] layer:
@@ -129,9 +167,117 @@ class BatchedDenseGrandProduct:
 
     def prove(self, transcript: Transcript
               ) -> tuple[BatchedGrandProductProof, list[FElt]]:
+        claims = self.claims()
+        if _use_chain(self.layers[0][0].device):
+            B = self.layers[0][0].shape[0]
+            ops = sum((1 << j) * (B * 7 + 4)
+                      for j in range(len(self.layers) - 1))
+            with span("BatchedDenseGP::chained", ops=ops):
+                pend, (state, _, _) = _chain_prove_dense(
+                    self.spec, self.layers, transcript)
+                comp_ints, row_ints = _chain_pull(self.spec, pend)
+                layer_proofs, r_grand_product, _, _ = _chain_replay_dense(
+                    self.spec, pend, comp_ints, row_ints, claims, transcript)
+                _assert_chain_state(transcript, state,
+                                    "BatchedDenseGP::chained")
+            return BatchedGrandProductProof(layer_proofs), r_grand_product
         layer_proofs, r_grand_product, _ = _prove_dense_layers(
-            self.spec, self.layers, self.claims(), [], transcript)
+            self.spec, self.layers, claims, [], transcript)
         return BatchedGrandProductProof(layer_proofs), r_grand_product
+
+
+def _chain_prove_dense(spec: FieldSpec, layers: list, transcript: Transcript):
+    """Every dense layer's challenge vector, eq table, rounds (K2 -> K9 ->
+    K3) and claim appends on the device with no host sync; each layer is
+    released as it is consumed.  Returns (pend, (state, rs, claims)): pend
+    holds per layer (rounds k, its compressed polys [16, 3] each, its claim
+    row [16, 2B]) on the device; rs [16, k + 1] the next r_grand_product
+    and claims [16, B] the folded claims."""
+    n_layers = len(layers)
+    B = layers[0][0].shape[0]
+    dev = layers[0][0].device
+    state = fsd.state_to_device(transcript, dev)
+    top_l, top_r = layers[-1]
+    claims_dev = fd.fmul(spec, top_l[..., 0].T, top_r[..., 0].T)  # [16, B]
+    rs = fd.zeros(spec, (0,), dev)
+    pend = []
+    for li in range(n_layers - 1, -1, -1):
+        l, r = layers[li]
+        layers[li] = None
+        k = n_layers - 1 - li                       # rounds of this layer
+        coeffs, state = fsd.challenge_vector_dev(spec, state, B)
+        prev = fsd.fold_claims_dev(spec, claims_dev, coeffs)
+        eq = fsd.eq_masked_br(spec, rs, k)
+        comps, rrounds = [], fd.zeros(spec, (k,), dev)
+        for j in range(k):
+            e023 = _pair_cubic_evals(spec, l, r, eq, coeffs)
+            comp, rj, prev, state = fsd.fs_round(spec, e023, prev, state, 3,
+                                                 True)
+            l, r, eq = _pair_bind(spec, l, r, eq, rj)
+            comps.append(comp)
+            fsd.set_col(rrounds, rj, j)
+        lefts, rights, inter = fsd.pair_finals_dev(spec, l, r)
+        state = fsd.append_scalars_dev(spec, state, inter, 2 * B)
+        r_layer, state = fsd.challenge_scalar_dev(spec, state)
+        claims_dev = fsd.fold_lr_dev(spec, lefts, rights, r_layer)
+        rs = fsd.rebuild_rs(rrounds, r_layer, k)
+        pend.append((k, comps, inter))
+    return pend, (state, rs, claims_dev)
+
+
+def _chain_pull(spec: FieldSpec, pend: list, extra_comps: list = (),
+                extra_rows: list = ()):
+    """One pull of every queued round poly and claim row: returns
+    (comp_ints [n_polys][3], row_ints [n_rows][width])."""
+    comps = [c for (_, cs, _) in pend for c in cs] + list(extra_comps)
+    rows = [row for (_, _, row) in pend] + list(extra_rows)
+    ints = fd.device_to_ints(spec, torch.cat(comps + rows, dim=1)).tolist()
+    comp_ints = [ints[3 * i:3 * i + 3] for i in range(len(comps))]
+    row_ints, pos = [], 3 * len(comps)
+    for row in rows:
+        row_ints.append(ints[pos:pos + row.shape[1]])
+        pos += row.shape[1]
+    return comp_ints, row_ints
+
+
+def _chain_replay_dense(spec: FieldSpec, pend: list, comp_ints, row_ints,
+                        claims: list[FElt], transcript: Transcript):
+    """Replay the dense layers through the host transcript, building the
+    proof; the caller checks the device chain's state against it.  Returns
+    (layer_proofs, r_grand_product, claims, polys consumed)."""
+    layer_proofs = []
+    r_grand_product: list[FElt] = []
+    idx = 0
+    B = len(claims)
+    for (k, _, _), inter in zip(pend, row_ints):
+        transcript.challenge_vector(B)
+        compressed, r_sumcheck = [], []
+        for _ in range(k):
+            cpoly = CompressedUniPoly(
+                [FElt(int(v), spec) for v in comp_ints[idx]])
+            idx += 1
+            cpoly.append_to_transcript(transcript)
+            r_sumcheck.append(transcript.challenge_scalar())
+            compressed.append(cpoly)
+        lefts = [FElt(int(inter[2 * b]), spec) for b in range(B)]
+        rights = [FElt(int(inter[2 * b + 1]), spec) for b in range(B)]
+        for lc, rc in zip(lefts, rights):
+            transcript.append_scalar(lc)
+            transcript.append_scalar(rc)
+        r_layer = transcript.challenge_scalar()
+        claims = [lc + r_layer * (rc - lc)
+                  for lc, rc in zip(lefts, rights)]
+        r_grand_product = list(reversed(r_sumcheck)) + [r_layer]
+        layer_proofs.append(BatchedGrandProductLayerProof(
+            SumcheckInstanceProof(compressed), lefts, rights))
+    return layer_proofs, r_grand_product, claims, idx
+
+
+def _assert_chain_state(transcript: Transcript, state: torch.Tensor,
+                        protocol: str) -> None:
+    """Raise RuntimeError unless the chained device transcript reached the
+    host replay's state."""
+    fsd.check_state(transcript, state, protocol)
 
 
 def _prove_dense_layers(spec: FieldSpec, layers: list[tuple],
@@ -165,7 +311,23 @@ def _prove_dense_layers(spec: FieldSpec, layers: list[tuple],
             r_sumcheck: list[FElt] = []
             compressed: list[CompressedUniPoly] = []
             previous_claim = joint_claim
-            for _ in range(len(r_grand_product)):
+            if r_grand_product and _use_device_fs(dev):
+                # device Fiat-Shamir: the layer's rounds chain through the
+                # device with no host sync; one pull, one host replay
+                state = fsd.state_to_device(transcript, dev)
+                prev = fd.scalar_to_device(spec, joint_claim.v, dev)
+                comps = []
+                for _ in range(len(r_grand_product)):
+                    e023 = _pair_cubic_evals(spec, l, r, eq, coeffs_dev)
+                    comp, rj, prev, state = fsd.fs_round(spec, e023, prev,
+                                                         state, 3, True)
+                    l, r, eq = _pair_bind(spec, l, r, eq, rj)
+                    comps.append(comp)
+                compressed, r_sumcheck = fsd.replay_and_check(
+                    spec, fd.device_to_ints(spec, torch.stack(comps, dim=1))
+                    .tolist(), transcript, state, CompressedUniPoly,
+                    "BatchedDenseGP::layer")
+            for _ in range(len(r_grand_product) - len(compressed)):
                 e0, e2, e3 = _felts(spec, _pair_cubic_evals(spec, l, r, eq,
                                                             coeffs_dev))
                 round_poly = UniPoly.from_evals([e0, previous_claim - e0,
@@ -291,22 +453,39 @@ class ToggledBatchedGrandProduct:
     def prove(self, transcript: Transcript
               ) -> tuple[BatchedGrandProductProof, list[FElt]]:
         spec = self.spec
+        claims = self.claims()
+        dev = self.fingerprints.device
+        if _use_chain(dev):
+            return self._prove_chained(transcript, claims)
         layer_proofs, r_grand_product, claims = _prove_dense_layers(
-            spec, self.layers, self.claims(), [], transcript)
+            spec, self.layers, claims, [], transcript)
 
         # toggle layer (grand_product.rs:1422-1474): log T rounds, no r_layer
         coeffs = transcript.challenge_vector(len(claims))
         previous_claim = FElt(0, spec)
         for c, co in zip(claims, coeffs):
             previous_claim = previous_claim + c * co
-        dev = self.fingerprints.device
         coeffs_dev = fd.ints_to_device(spec, [c.v for c in coeffs], dev)
         eq = eq_evals_device_br(spec, r_grand_product, dev)
         flags = _expand_flag_bits(spec, self._flag_bits)
         fps = self.fingerprints
         r_sumcheck: list[FElt] = []
         compressed: list[CompressedUniPoly] = []
-        for _ in range(len(r_grand_product)):
+        if r_grand_product and _use_device_fs(dev):
+            state = fsd.state_to_device(transcript, dev)
+            prev = fd.scalar_to_device(spec, previous_claim.v, dev)
+            comps = []
+            for _ in range(len(r_grand_product)):
+                e023 = _toggle_cubic_evals(spec, flags, fps, eq, coeffs_dev)
+                comp, rj, prev, state = fsd.fs_round(spec, e023, prev, state,
+                                                     3, True)
+                flags, fps, eq = _toggle_bind(spec, flags, fps, eq, rj)
+                comps.append(comp)
+            compressed, r_sumcheck = fsd.replay_and_check(
+                spec, fd.device_to_ints(spec, torch.stack(comps, dim=1))
+                .tolist(), transcript, state, CompressedUniPoly,
+                "ToggledGP::toggle")
+        for _ in range(len(r_grand_product) - len(compressed)):
             e0, e2, e3 = _felts(spec, _toggle_cubic_evals(spec, flags, fps,
                                                           eq, coeffs_dev))
             round_poly = UniPoly.from_evals([e0, previous_claim - e0, e2, e3])
@@ -328,6 +507,59 @@ class ToggledBatchedGrandProduct:
             transcript.append_scalar(rc)
         layer_proofs.append(BatchedGrandProductLayerProof(
             SumcheckInstanceProof(compressed), left_claims, fp_vals))
+        return BatchedGrandProductProof(layer_proofs), list(reversed(r_sumcheck))
+
+    def _prove_chained(self, transcript: Transcript, claims: list[FElt]
+                       ) -> tuple[BatchedGrandProductProof, list[FElt]]:
+        """The dense layers and the toggle rounds enqueued on the device
+        with no host sync; one pull and one host replay at the end."""
+        spec = self.spec
+        m = self.real_batch
+        T = self.fingerprints.shape[-1]
+        k_toggle = T.bit_length() - 1
+        ops = (sum((1 << j) * (m * 7 + 4) for j in range(k_toggle - 1))
+               + 2 * T * (m * 8 + 4))
+        with span("ToggledGP::chained", ops=ops):
+            pend, (state, rs, claims_dev) = _chain_prove_dense(
+                spec, self.layers, transcript)
+            # toggle rounds (grand_product.rs:1422-1474): log T rounds,
+            # claims appended per (flag, fingerprint) pair, no r_layer
+            coeffs, state = fsd.challenge_vector_dev(spec, state, m)
+            prev = fsd.fold_claims_dev(spec, claims_dev, coeffs)
+            eq = fsd.eq_masked_br(spec, rs, k_toggle)
+            flags = _expand_flag_bits(spec, self._flag_bits)
+            fps = self.fingerprints
+            comps = []
+            for _ in range(k_toggle):
+                e023 = _toggle_cubic_evals(spec, flags, fps, eq, coeffs)
+                comp, rj, prev, state = fsd.fs_round(spec, e023, prev, state,
+                                                     3, True)
+                flags, fps, eq = _toggle_bind(spec, flags, fps, eq, rj)
+                comps.append(comp)
+            inter = fsd.toggle_finals_dev(spec, flags, fps)
+            state = fsd.append_scalars_dev(spec, state, inter, 2 * m)
+            del flags, fps, eq
+
+            comp_ints, row_ints = _chain_pull(spec, pend, comps, [inter])
+            layer_proofs, _, _, idx = _chain_replay_dense(
+                spec, pend, comp_ints, row_ints[:-1], claims, transcript)
+            transcript.challenge_vector(m)
+            compressed, r_sumcheck = [], []
+            for row in comp_ints[idx:]:
+                cpoly = CompressedUniPoly([FElt(int(v), spec) for v in row])
+                cpoly.append_to_transcript(transcript)
+                r_sumcheck.append(transcript.challenge_scalar())
+                compressed.append(cpoly)
+            row = row_ints[-1]
+            left_claims = [FElt(int(row[2 * b]), spec) for b in range(m)]
+            right_claims = [FElt(int(row[2 * b + 1]), spec)
+                            for b in range(m)]
+            for lc, rc in zip(left_claims, right_claims):
+                transcript.append_scalar(lc)
+                transcript.append_scalar(rc)
+            _assert_chain_state(transcript, state, "ToggledGP::chained")
+            layer_proofs.append(BatchedGrandProductLayerProof(
+                SumcheckInstanceProof(compressed), left_claims, right_claims))
         return BatchedGrandProductProof(layer_proofs), list(reversed(r_sumcheck))
 
 

@@ -6,7 +6,11 @@ CPU (jolt_tpu/subprotocols/sumcheck.py:132-155): each round evaluates the
 combined polynomial at t = 0..degree over the half-hypercube (top-variable
 split, extrapolation by repeated addition of hi - lo), interpolates the
 round polynomial on the host, appends its compressed form to the
-transcript, and binds every polynomial to the challenge.
+transcript, and binds every polynomial to the challenge.  With device
+Fiat-Shamir (grand_product._use_device_fs: by default for CUDA tensors)
+the interpolation, the transcript and the challenge stay on the device
+(`_prove_rounds_device`, jolt_tpu's sumcheck.py:400-461 without its host
+tail), and the host replays the round polynomials once at the end.
 """
 from __future__ import annotations
 
@@ -109,7 +113,11 @@ def prove_arbitrary(num_rounds: int,
     r: list[FElt] = []
     compressed: list[CompressedUniPoly] = []
     with span("Sumcheck::prove_arbitrary", ops=ops):
-        for _ in range(num_rounds):
+        if num_rounds > 0 and _use_device_fs(polys[0].device):
+            compressed, r, polys = _prove_rounds_device(
+                num_rounds, polys, comb_func, degree, transcript, spec,
+                bot=False, claim=None)
+        for _ in range(num_rounds - len(compressed)):
             evals = _felts(spec, _round_evals(spec, comb_func, degree, polys))
             round_poly = UniPoly.from_evals(evals)
             cpoly = round_poly.compress()
@@ -140,7 +148,11 @@ def prove_arbitrary_bot(num_rounds: int, polys: Sequence[torch.Tensor],
     r: list[FElt] = []
     compressed: list[CompressedUniPoly] = []
     previous_claim = claim
-    for _ in range(num_rounds):
+    if num_rounds > 0 and _use_device_fs(polys[0].device):
+        compressed, r, polys = _prove_rounds_device(
+            num_rounds, polys, comb_func, degree, transcript, spec, bot=True,
+            claim=claim)
+    for _ in range(num_rounds - len(compressed)):
         evals = _felts(spec, _round_evals(spec, comb_func, degree, polys,
                                           bot=True))
         if previous_claim is not None:
@@ -157,6 +169,38 @@ def prove_arbitrary_bot(num_rounds: int, polys: Sequence[torch.Tensor],
         compressed.append(cpoly)
     final_evals = _felts(spec, torch.stack([p[..., 0] for p in polys], dim=1))
     return SumcheckInstanceProof(compressed), r, final_evals
+
+
+def _use_device_fs(device) -> bool:
+    from .grand_product import _use_device_fs as use
+    return use(device)
+
+
+def _prove_rounds_device(num_rounds, polys, comb_func, degree, transcript,
+                         spec, bot: bool, claim):
+    """The rounds with device Fiat-Shamir: evals -> K9 -> bind with no
+    host sync, then one pull of the compressed polys and one host replay.
+    With a `claim`, each round's t = 1 evaluation is the previous claim
+    minus e_0 (the hint).  Returns (compressed, r, bound polys)."""
+    from . import fs_device as fsd
+    dev = polys[0].device
+    use_hint = claim is not None
+    state = fsd.state_to_device(transcript, dev)
+    prev = fd.scalar_to_device(spec, claim.v, dev) if use_hint \
+        else fd.zeros(spec, (), dev)
+    bind = bind_bot if bot else bind_top
+    comps = []
+    for _ in range(num_rounds):
+        evals = _round_evals(spec, comb_func, degree, polys, bot=bot)
+        comp, rj, prev, state = fsd.fs_round(spec, evals, prev, state,
+                                             degree, use_hint)
+        polys = tuple(bind(spec, p, rj) for p in polys)
+        comps.append(comp)
+    compressed, r = fsd.replay_and_check(
+        spec, fd.device_to_ints(spec, torch.stack(comps, dim=1)).tolist(),
+        transcript, state, CompressedUniPoly,
+        "Sumcheck::prove_arbitrary" + ("_bot" if bot else ""))
+    return compressed, r, polys
 
 
 def comb_product(spec: FieldSpec, params) -> torch.Tensor:

@@ -30,8 +30,10 @@ from ..lasso.memory_checking import MemoryCheckingProof, MultisetHashes
 from ..lasso.surge import cumcount
 from ..poly import mle
 from ..poly.unipoly import CompressedUniPoly, UniPoly
+from ..subprotocols import fs_device as fsd
 from ..subprotocols.grand_product import (BatchedDenseGrandProduct,
                                           ToggledBatchedGrandProduct,
+                                          _use_device_fs,
                                           toggled_verify_sumcheck_claim,
                                           verify_grand_product)
 from ..subprotocols.sumcheck import SumcheckInstanceProof, VerificationError
@@ -312,7 +314,24 @@ def prove_instruction_lookups(pre: InstructionLookupsPreprocessing,
 
     r_primary: list[FElt] = []
     compressed: list[CompressedUniPoly] = []
-    for _ in range(num_rounds):
+    if num_rounds > 0 and _use_device_fs(dev):
+        # device Fiat-Shamir (jolt_tpu's instruction_lookups.py:443-468):
+        # the rounds chain through the device, one pull and a host replay
+        state = fsd.state_to_device(transcript, dev)
+        prev = fd.zeros(spec, (), dev)
+        comps = []
+        for _ in range(num_rounds):
+            evals = _primary_round_evals(pre, eq, out, fl, e)
+            comp, rj, prev, state = fsd.fs_round(
+                spec, evals, prev, state, pre.sumcheck_degree, False)
+            eq, out, fl, e = (mle.bind_top(spec, t, rj)
+                              for t in (eq, out, fl, e))
+            comps.append(comp)
+        compressed, r_primary = fsd.replay_and_check(
+            spec, fd.device_to_ints(spec, torch.stack(comps, dim=1)).tolist(),
+            transcript, state, CompressedUniPoly,
+            "InstructionLookups::primary_sumcheck")
+    for _ in range(num_rounds - len(compressed)):
         evals = _felts(spec, _primary_round_evals(pre, eq, out, fl, e))
         round_poly = UniPoly.from_evals(evals)
         cpoly = round_poly.compress()

@@ -56,6 +56,15 @@ jolt_tpu on the CPU and written to `fixtures/port/<case>.npz`:
                        and length), as fixtures/port/fib3_proof_bytes.json
                        (jolt_tpu's byte serializers read HyperKZG points and
                        opening proofs, which the mock PCS has not)
+    fib3_spans_chain   as fib3_spans, with jolt_tpu's device Fiat-Shamir
+                       and chained grand products on (FS_DEVICE_ENV), as
+                       fixtures/port/fib3_spans_chain.json
+    fs_device      jolt_tpu's side of tests/test_torch_fs_device.py, with
+                   FS_DEVICE_ENV: three chained fs_cubic_round_jit rounds
+                   (compressed polys, challenges, claims, states), the
+                   chained dense grand product (B = 2, 8 leaves) and the
+                   chained toggled one (2 flag rows, T = 8): transcripts,
+                   challenges, claims, and their span rows
 
 The cases, their programs and the array format are in
 jolt_tpu_torch/vm/fixtures.py, which the port's tests and chip_smoke.py
@@ -66,6 +75,7 @@ an rv32i one longer.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -83,6 +93,25 @@ from jolt_tpu_torch.vm import fixtures as fx  # noqa: E402
 
 CASES = ("mock", "hyperkzg", "parity")
 PCS_CASES = ("zeromorph_l6", "hyrax_l7")
+# jolt_tpu's device Fiat-Shamir on the CPU, with its device rounds down to
+# the last (no host tail): the mode the port's device path is held to
+FS_DEVICE_ENV = {"JOLT_TPU_DEVICE_FS": "1", "JOLT_TPU_CHAIN": "1",
+                 "JOLT_TPU_HOST_TAIL": "0"}
+
+
+@contextlib.contextmanager
+def env(values: dict):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def ark_bytes(vm, pre, proof, commitments) -> bytes:
@@ -305,6 +334,75 @@ def jolt_parts_arrays() -> dict:
     return out
 
 
+def fs_device_inputs() -> dict:
+    """The numpy-seeded inputs of tests/test_torch_fs_device.py."""
+    rng = np.random.default_rng(31)
+    return {"gp_leaves": field_ints(rng, 2, 8),
+            "tg_bits": rng.integers(0, 2, size=(2, 8)).astype(bool),
+            "tg_fps": field_ints(rng, 4, 8),
+            "round_evals": field_ints(rng, 3, 3),
+            "round_prev": field_ints(rng, 1)}
+
+
+def fs_device_arrays() -> dict:
+    """jolt_tpu's outputs on `fs_device_inputs`, with FS_DEVICE_ENV:
+    limbs as uint32 [16, ...], states as uint32 [8] + count, transcripts,
+    challenges and claims as bytes, and the grand products' span rows (a
+    JSON string)."""
+    from jolt_tpu.field import fr_spec
+    from jolt_tpu.field import device as jfd
+    from jolt_tpu.subprotocols import fs_device as jfsd
+    from jolt_tpu.subprotocols import grand_product as jgp
+    from jolt_tpu.transcript import Transcript
+    from jolt_tpu.utils import profiling
+    from jolt_tpu_torch.commitment.fixtures import states
+    from jolt_tpu_torch.convert import scalars_to_numpy
+
+    spec = fr_spec()
+    dev = lambda vals: jfd.ints_to_device(spec, vals.tolist())
+    limbs = lambda a: np.asarray(a).astype(np.uint32)
+    inp = fs_device_inputs()
+    out = {}
+    with env(FS_DEVICE_ENV):
+        t = Transcript(b"fs_round")
+        state, nr = jfsd.state_to_device(t)
+        prev = dev(inp["round_prev"])[:, 0]
+        fs_round = jfsd.fs_cubic_round_jit(spec)
+        for j, e023 in enumerate(inp["round_evals"]):
+            comp, rj, prev, state, nr = fs_round(dev(e023), prev, state, nr)
+            out.update({f"round{j}_comp": limbs(comp),
+                        f"round{j}_rj": limbs(rj),
+                        f"round{j}_prev": limbs(prev),
+                        f"round{j}_state": limbs(state),
+                        f"round{j}_nr": limbs(nr)})
+        profiling.reset()
+        profiling.enable(True)
+        try:
+            gp = jgp.BatchedDenseGrandProduct.construct(
+                dev(inp["gp_leaves"]), spec)
+            tg = jgp.ToggledBatchedGrandProduct(inp["tg_bits"],
+                                                dev(inp["tg_fps"]), spec)
+            assert gp._chain_ok() and tg._chain_ok()
+            for name, circ in (("gp", gp), ("tg", tg)):
+                t = Transcript(name.encode())
+                proof, r = circ.prove(t)
+                out.update({
+                    f"{name}_states": states(t),
+                    f"{name}_r": scalars_to_numpy(r),
+                    f"{name}_left": np.concatenate(
+                        [scalars_to_numpy(lp.left_claims)
+                         for lp in proof.layers]),
+                    f"{name}_right": np.concatenate(
+                        [scalars_to_numpy(lp.right_claims)
+                         for lp in proof.layers])})
+        finally:
+            profiling.enable(False)
+        out["spans"] = np.array(json.dumps(sorted(
+            [name, calls, ops]
+            for name, calls, _, ops in profiling.cumulative())))
+    return out
+
+
 def prove_pcs_case(case: str) -> dict:
     """jolt_tpu's openings of `zeromorph_l6` or `hyrax_l7`, each verified
     by jolt_tpu, as the arrays of jolt_tpu_torch/commitment/fixtures.py."""
@@ -433,19 +531,24 @@ def main(argv=None) -> None:
                                             *PCS_CASES, "jolt_parts",
                                             "quark_hyperkzg", "quark_mock",
                                             "fib3_spans",
-                                            "fib3_proof_bytes"]
+                                            "fib3_proof_bytes",
+                                            "fib3_spans_chain", "fs_device"]
     chosen = list(argv if argv is not None else sys.argv[1:]) or names
     for name in chosen:
         if name not in names:
             raise SystemExit(f"unknown case {name}; cases: {names}")
         t0 = time.perf_counter()
-        if name in ("fib3_proof_bytes", "quark_mock", "fib3_spans"):
+        if name in ("fib3_proof_bytes", "quark_mock", "fib3_spans",
+                    "fib3_spans_chain"):
             if name == "fib3_proof_bytes":
                 record = fib3_proof_bytes()
             elif name == "quark_mock":
                 from jolt_tpu_torch.subprotocols import fixtures as sfx
                 record = {case: quark_mock_case(*args)
                           for case, args in sfx.QUARK_MOCK_CASES.items()}
+            elif name == "fib3_spans_chain":
+                with env(FS_DEVICE_ENV):
+                    record = {"rows": fib3_proof("mock", spans=True)}
             else:
                 record = {"rows": fib3_proof("mock", spans=True)}
             path = OUT_DIR / f"{name}.json"
@@ -458,6 +561,8 @@ def main(argv=None) -> None:
             arrays = prove_pcs_case(name)
         elif name == "jolt_parts":
             arrays = jolt_parts_arrays()
+        elif name == "fs_device":
+            arrays = fs_device_arrays()
         elif name == "quark_hyperkzg":
             arrays = prove_quark_case()
         elif name.startswith("fib3_"):

@@ -7,7 +7,8 @@ to the CPU.
   jax nor any jolt_tpu module nor elftools;
 - no source of the port, and not chip_smoke.py, imports them;
 - an entry point called with no CUDA card and no device="cpu" raises;
-- a kernel wrapper handed tensors that are not on the CPU launches its
+- a kernel wrapper handed tensors that are not on the CPU (K1-K7, and
+  the device Fiat-Shamir's K8 and K9) launches its
   kernel or raises: it never runs its plain version instead, and neither
   do the windowed MSM, Hyrax, Zeromorph, the grand-product commit or the
   Quarks product tree.
@@ -36,7 +37,9 @@ from jolt_tpu_torch.field import kernels as fk
 from jolt_tpu_torch.field.spec import fr_spec
 from jolt_tpu_torch.instructions import XorInstruction
 from jolt_tpu_torch.lasso import SurgePreprocessing
+from jolt_tpu_torch.subprotocols import fs_device as fsd
 from jolt_tpu_torch.subprotocols.grand_product_quarks import QuarkGrandProduct
+from jolt_tpu_torch.utils import keccak_device as kd
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "jolt_tpu_torch"
@@ -60,7 +63,8 @@ need = {"jolt_tpu_torch.sdk", "jolt_tpu_torch.native",
         "jolt_tpu_torch.evm.gen_r1cs_sol", "jolt_tpu_torch.evm.solidity_vm",
         "jolt_tpu_torch.utils.profiling", "jolt_tpu_torch.utils.caches",
         "jolt_tpu_torch.tracer.bus", "jolt_tpu_torch.tracer.peripherals",
-        "jolt_tpu_torch.field.binius"}
+        "jolt_tpu_torch.field.binius", "jolt_tpu_torch.utils.keccak_device",
+        "jolt_tpu_torch.subprotocols.fs_device"}
 bad += sorted(f"not imported: {m}" for m in need - set(sys.modules))
 print(len([m for m in sys.modules if m.startswith("jolt_tpu_torch")]))
 sys.exit("loaded: " + ", ".join(bad) if bad else 0)
@@ -156,6 +160,12 @@ _WRAPPERS = {
     "proj_cadd": lambda: ck.proj_cadd((_meta(16, 4),) * 3, (_meta(16, 4),) * 3),
     "jac_add": lambda: ck.jac_add((_meta(16, 4),) * 3, (_meta(16, 4),) * 3),
     "jac_double": lambda: ck.jac_double((_meta(16, 4),) * 3),
+    "transcript_events": lambda: kd.transcript_events(
+        fr_spec(), torch.zeros(9, dtype=torch.int64, device="meta"),
+        _meta(16, 4), [(kd.APPEND, 4), (kd.CHALLENGE, 1)]),
+    "fs_round": lambda: fsd.fs_round(
+        fr_spec(), _meta(16, 3), _meta(16),
+        torch.zeros(9, dtype=torch.int64, device="meta"), 3, True),
 }
 
 

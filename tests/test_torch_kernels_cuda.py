@@ -6,9 +6,12 @@ shapes do not: GP rounds down to pair size 2 at every batch size the
 provers use, odd sizes, views with a batch stride, a broadcast scalar
 operand; K2 and K5 on edge residues (0, 1, p - 1, R mod p, ...), where the
 kernels' lazy reduction crosses p and 2p, and on P + (-P); K2 called again
-and again, which checks that its last-block counter is reset.  Every
+and again, which checks that its last-block counter is reset; K8 (the
+transcript events) against its plain version and the host transcript over
+chained appends and challenges, and K9 (the device Fiat-Shamir round) at
+the degrees the provers use; K3 taking its challenge from the card.  Every
 comparison is of integer
-limbs: the tolerance is zero.  This file imports nothing of JAX, so on a
+limbs or transcript bytes: the tolerance is zero.  This file imports nothing of JAX, so on a
 machine without it run it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -23,6 +26,10 @@ from jolt_tpu_torch.field import arith
 from jolt_tpu_torch.field import device as fd
 from jolt_tpu_torch.field import kernels as fk
 from jolt_tpu_torch.field.spec import fq_spec, fr_spec
+from jolt_tpu_torch.field.host import FElt
+from jolt_tpu_torch.subprotocols import fs_device as fsd
+from jolt_tpu_torch.transcript import Transcript
+from jolt_tpu_torch.utils import keccak_device as kd
 
 pytestmark = pytest.mark.cuda
 SPECS = {"fr": fr_spec(), "fq": fq_spec()}
@@ -314,3 +321,102 @@ def test_hyrax_commit_on_the_card_equals_the_cpu(dev):
             assert ck.JAC_ADD.launches > before[0]
             assert ck.JAC_DOUBLE.launches > before[1]
     assert coms[0].row_commitments == coms[1].row_commitments
+
+
+def _edge_scalars(spec, n, seed):
+    """n scalars, most of them edges (0, 1, p - 1, R mod p), as ints."""
+    import random
+    rng = random.Random(seed)
+    pool = [0, 1, spec.p - 1, spec.r]
+    return [rng.choice(pool) if rng.random() < 0.5 else rng.randrange(spec.p)
+            for _ in range(n)]
+
+
+def test_transcript_events_chain(dev):
+    """1,024 chained events (appends of edge scalars, challenges) in
+    launches of up to 16 segments: K8 == its plain version on the card ==
+    the host transcript, state, count and challenges; some challenge
+    digests lie in [5p, 2^256), the range the reduction must handle."""
+    import random
+    spec = fr_spec()
+    rng = random.Random(8)
+    host = Transcript(b"k8")
+    state = fsd.state_to_device(host, dev)
+    plain_state = state.clone()
+    done, big = 0, 0
+    while done < 1024:
+        segs = [(rng.choice((kd.APPEND, kd.CHALLENGE)), rng.randrange(0, 9))
+                for _ in range(rng.randrange(1, kd.MAX_SEGS + 1))]
+        n_app = sum(c for k, c in segs if k == kd.APPEND)
+        vals = _edge_scalars(spec, max(n_app, 1), seed=done)
+        sc = fd.ints_to_device(spec, vals, dev)
+        before = kd.TRANSCRIPT_EVENTS.launches
+        state, chals = kd.transcript_events(spec, state, sc, segs)
+        torch.cuda.synchronize()
+        assert kd.TRANSCRIPT_EVENTS.launches == before + 1
+        plain_state, plain_chals = kd.transcript_events_plain(
+            spec, plain_state, sc, segs)
+        _equal((state, chals), (plain_state, plain_chals))
+        want, col = [], 0
+        for kind, count in segs:
+            for _ in range(count):
+                if kind == kd.APPEND:
+                    host.append_scalar(FElt(vals[col], spec))
+                    col += 1
+                else:
+                    want.append(host.challenge_scalar().v)
+                    big += int.from_bytes(host.state, "big") >= 5 * spec.p
+        assert fsd.state_bytes(state) == (host.state, host.n_rounds)
+        assert [int(v) for v in fd.device_to_ints(spec, chals).tolist()] \
+            == want
+        done += sum(c for _, c in segs)
+    assert big > 0
+
+
+def test_digest_reduction_on_the_card(dev):
+    """K8's and K9's challenge conversion is field.cuh's fmul(R^2, v) with
+    the digest v in the b slot; K1 runs the same routine: all-ones and
+    [5p, 2^256) digests against the plain words_to_mont."""
+    spec = fr_spec()
+    vals = [(1 << 256) - 1, 5 * spec.p, 5 * spec.p + 12345,
+            (1 << 256) - spec.p]
+    limbs = torch.from_numpy(fd.pack_ints(vals).astype("int32")).to(dev)
+    r2 = arith.const_limbs(spec, "r2", dev).reshape(16, 1)
+    got = fk.mont_mul(spec, r2, limbs)
+    words = torch.tensor([[int.from_bytes(v.to_bytes(32, "big")[4 * k:4 * k + 4],
+                                          "little") for v in vals]
+                          for k in range(8)], dtype=torch.int64, device=dev)
+    _equal(got, kd.words_to_mont(spec, words))
+    assert [int(v) for v in fd.device_to_ints(spec, got).tolist()] == \
+        [v % spec.p for v in vals]
+
+
+@pytest.mark.parametrize("degree,use_hint,n_evals",
+                         [(2, True, 2), (3, True, 3), (3, True, 4),
+                          (3, False, 4), (8, False, 9)])
+def test_fs_round(dev, degree, use_hint, n_evals):
+    """K9 == its plain version at the provers' degrees: 2 (the opening
+    reduction) and 3 (GKR, toggle, Spartan) with the hint, and 8 (the
+    full VM's primary sumcheck) without; edge residues."""
+    spec = fr_spec()
+    host = Transcript(b"k9")
+    state = fsd.state_to_device(host, dev)
+    for seed in range(4):
+        evals = _edge(spec, dev, n_evals, seed=seed)
+        prev = _edge(spec, dev, 1, seed=seed + 9)[:, 0]
+        got = _launched(fsd.FS_ROUND, lambda: fsd.fs_round(
+            spec, evals, prev, state, degree, use_hint))
+        want = fsd.fs_round_plain(spec, evals, prev, state, degree, use_hint)
+        _equal(got, want)
+        state = got[3]
+
+
+def test_gp_pair_bind_takes_a_challenge_on_the_card(dev):
+    spec = fr_spec()
+    l = _rand(spec, dev, 3, 64, seed=3).movedim(0, 1).contiguous()
+    r = _rand(spec, dev, 3, 64, seed=4).movedim(0, 1).contiguous()
+    eq = _rand(spec, dev, 64, seed=5)
+    rc = fd.scalar_to_device(spec, 0x1234567 ** 9, dev)
+    _equal(_launched(fk.GP_PAIR_BIND,
+                     lambda: fk.gp_pair_bind(spec, l, r, eq, rc)),
+           fk.gp_pair_bind_plain(spec, l, r, eq, rc))
