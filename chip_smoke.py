@@ -10,8 +10,11 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      report, with the warps per SM they leave room for;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the nv = 20 Surge prove gives it (K7: the SRS fixture tiled),
-     compared for equality, and timed with CUDA events (kernel_ms,
-     plain_ms, and the bound from bytes and from 32-bit multiplies);
+     compared for equality, and timed with CUDA events on the card alone
+     (event_ms: the card sleeps while the host enqueues the timed calls)
+     (kernel_ms, plain_ms, and the bound from bytes and from 32-bit
+     multiplies; for K8 and K9 also the bound of the work's dependent
+     chain, beside that of one thread running all of it);
      then K2 at the fib GP's batch (B = 43, 64; s = 2^15, 2^9, 2^5), at
      the full VM's (B = 65, 81, 110, 128, and 200, which the wrapper
      splits over two launches; s = 2^15, 2^5) with K3 at B = 110, and
@@ -20,7 +23,9 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      and the identity; then the device Fiat-Shamir kernels: K8 (the
      transcript events) against its plain version and the host Transcript
      over 1,024 chained events (appends of edge scalars, challenges) and
-     at the main path's shapes (a challenge vector of 110, 220 appends),
+     at the main path's shapes (a challenge vector of 110, 220 appends,
+     a chained GKR layer's one list: 220 appends, 1 challenge, 110
+     challenges),
      K9 (the sumcheck round) at d = 2 and 3 with the hint and at the full
      VM's primary degree 8 without it, on edge residues;
   3. the main path begins (launch counts set to 0): HyperKZG setup of the
@@ -61,7 +66,9 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      (the default on the card; K8 and K9 must launch), and then once more
      with JOLT_TPU_DEVICE_FS=0 (every round's transcript on the host): its
      state_history must equal the first prove's event for event, and both
-     proves' seconds are printed.  The first
+     proves' seconds are printed, with K8's and K9's launches in the
+     first prove and their summed device ms (each shape's calls times its
+     kernel's time on the card alone at that shape).  The first
      prove runs with the profiling spans on (utils/profiling.py; each
      syncs the card on entry and exit): their table is printed, and each
      of the seven top-level prove spans (witness_generation,
@@ -167,6 +174,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+HOLD_CYCLES = 20_000_000           # event_ms's sleep before the timed
+#   calls: some 10 ms at 1,980 MHz, longer than the host takes to enqueue
+#   ten calls of any wrapper
 SMS = 132                          # H100 SXM streaming multiprocessors
 IMAD_PER_CLK_SM = 64               # 32-bit integer multiply(-add) results
 #   per clock per SM at compute capability 9.0 (CUDA C++ Programming
@@ -182,7 +192,7 @@ SHA3_ITERS, SHA3_STEPS, SHA3_T = 2, 44479, 1 << 16
 GP_KERNELS = ("gp_pair_evals", "gp_pair_bind")
 FS_KERNELS = ("transcript_events", "fs_round")   # K8, K9: device Fiat-Shamir
 KECCAK_OPS = 24 * 210              # 32-bit operations of one Keccak-f[1600]
-#   as csrc/keccak.cu runs it: per round theta 110 (xor5 of 5 columns, 5
+#   on lo/hi halves, each lane once: per round theta 110 (xor5 of 5 columns, 5
 #   rotl-1, 25 xors), rho 48 (24 rotations, two funnel shifts each), chi 50
 #   (one LOP3 per 32-bit half), iota 2
 KECCAK_DEPTH = 24 * 7              # dependent instruction levels of one
@@ -191,6 +201,9 @@ KECCAK_DEPTH = 24 * 7              # dependent instruction levels of one
 PRODUCT_DEPTH = 8 * 2 * 9          # dependent levels of one Montgomery
 #   product (csrc/field.cuh): per word b_i a row and a reduction, each a
 #   carry chain of 9 multiply-adds
+ADD_DEPTH = 2 * 9                  # dependent levels of one modular add
+#   (field.cuh add_mod): the carry chain and the conditional subtraction's
+#   borrow chain
 DEP_CYCLES = 4                     # latency of a dependent integer
 #   instruction on the H100's SMs (fixed-latency ALU ops)
 REGS_PER_SM, SMEM_PER_SM, MAX_WARPS_PER_SM = 65536, 228 * 1024, 64
@@ -248,6 +261,32 @@ def fs_work(name: str, args) -> tuple[int, int, int]:
     _, evals, _, _, d, _ = args
     return (2 * 9 * 8 + 64 * (evals.shape[1] + 1 + (d + 1) ** 2 + d + 2),
             (d + 1) ** 2 + d + 1 + d, 3 + d)
+
+
+def fs_chain_levels(name: str, args) -> tuple[int, int]:
+    """Dependent instruction levels of one K8 or K9 call: (the work's
+    chain, the chain of a design that runs all of it in one thread).  The
+    work's chain: for K8, the permutations in order, then the last
+    challenge's Montgomery form (the appends' canonical forms and the
+    other challenges' forms lie beside it); for K9 at degree d, the longer
+    of the UniPoly_begin permutation and the first coefficient's
+    interpolation (its products side by side, their sum as a tree) and
+    canonical form, then d + 2 permutations, then the challenge's
+    Montgomery form and Horner (d products and d adds).  The one-thread
+    chain puts every product (fs_work) after the permutations."""
+    _, prods, perms = fs_work(name, args)
+    serial = perms * KECCAK_DEPTH + prods * PRODUCT_DEPTH
+    if name == "transcript_events":
+        from jolt_tpu_torch.utils import keccak_device as kd
+        _, _, scalars, segments = args
+        _, c = kd._check_segments(segments, 0 if scalars is None
+                                  else scalars.shape[1])
+        return perms * KECCAK_DEPTH + (PRODUCT_DEPTH if c else 0), serial
+    d = args[4]
+    interp = (2 * PRODUCT_DEPTH
+              + math.ceil(math.log2(d + 1)) * ADD_DEPTH)
+    return (max(KECCAK_DEPTH, interp) + (d + 2) * KECCAK_DEPTH
+            + (d + 1) * PRODUCT_DEPTH + d * ADD_DEPTH), serial
 
 
 def work(name: str, args) -> tuple[int, int]:
@@ -313,19 +352,26 @@ def resident_warps(regs: int, smem: int, threads: int) -> int:
     return blocks * wpb
 
 
-def event_ms(fn, reps: int, warm: bool = False) -> float:
+def event_ms(fn, reps: int, warm: bool = False, hold: bool = True) -> float:
     """Device ms per call of `fn`, by CUDA events around `reps` calls.
-    One call is left running when the start event is recorded, so the
-    card does not sit idle while the host enqueues the first timed call
-    (a bias of the host's enqueue time / reps otherwise).  A first call
-    warms up, unless `warm` says that fn has just run."""
+    With `hold`, the card first sleeps (torch.cuda._sleep, HOLD_CYCLES)
+    while the host enqueues the timed calls, so that a call whose host
+    side may outlast its kernel (K8, K9: Python and ctypes around a
+    kernel of microseconds) is timed by its kernels back to back, not by
+    the host.  Without it, one call is left running when the start event
+    is recorded (the earlier method, which times the host where it is the
+    slower).  A first call warms up, unless `warm` says that fn has just
+    run."""
     import torch
     if not warm:
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    fn()
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
+    else:
+        fn()
     start.record()
     for _ in range(reps):
         fn()
@@ -611,16 +657,20 @@ def main() -> None:
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
         if name in FS_KERNELS:
-            # one thread's dependent chain: what bounds K8 and K9 in fact
+            # the work's dependent chain and one launch: what bounds K8
+            # and K9 in fact; beside it the one-thread chain
             _, prods, perms = fs_work(name, args)
-            row["latency_bound_ms"] = (
-                (perms * KECCAK_DEPTH + prods * PRODUCT_DEPTH) * DEP_CYCLES
-                / clock_hz * 1e3 + launch["ms"])
+            chain, serial = fs_chain_levels(name, args)
+            row["latency_bound_ms"], row["serial_latency_bound_ms"] = (
+                lv * DEP_CYCLES / clock_hz * 1e3 + launch["ms"]
+                for lv in (chain, serial))
             row["launch_ms"] = launch["ms"]
             print(f"{phase}: {name} shape={shape} latency_bound_ms="
-                  f"{row['latency_bound_ms']:.4f} ({perms} permutations, "
-                  f"{prods} products, one launch {launch['ms']:.4f} ms)",
-                  flush=True)
+                  f"{row['latency_bound_ms']:.4f} ({chain} levels: "
+                  f"{perms} permutations, and the products on the chain; "
+                  f"one launch {launch['ms']:.4f} ms); with all {prods} "
+                  f"products on the chain, as one thread runs them, "
+                  f"{row['serial_latency_bound_ms']:.4f}", flush=True)
         if record:
             results.setdefault(name, {})[phase] = row
         else:                           # more shapes, kept beside the row
@@ -788,6 +838,11 @@ def main() -> None:
     compare("phase 2", "transcript_events", "220 appends of [16,220] edge "
             "residues", (FR, st8, edge_fe(FR, 220), [(kd.APPEND, 220)]),
             record=False)
+    compare("phase 2", "transcript_events", "a chained GKR layer: 220 "
+            "appends of [16,220] edge residues, 1 challenge, 110 "
+            "challenges", (FR, st8, edge_fe(FR, 220),
+                           [(kd.APPEND, 220), (kd.CHALLENGE, 1),
+                            (kd.CHALLENGE, 110)]), record=False)
     # K9: the GKR and toggle rounds (d = 3), the opening reduction (d = 2),
     # both with the hint, and the full VM's primary sumcheck (d = 8)
     prev9 = edge_fe(FR, 1)[:, 0]
@@ -915,9 +970,18 @@ def main() -> None:
             return type(x)(copy(y) for y in x)
         return x
 
-    def start_recording(by_batch):
+    def fs_shape(name, args):
+        """A K8 or K9 call's shape, which fixes its work: K8's segments
+        (and whether it appends), K9's degree, hint and evaluations."""
+        if name == "transcript_events":
+            return tuple(map(tuple, args[3])), args[2] is None
+        return args[4], args[5], args[1].shape[1]
+
+    def start_recording(by_batch, fs_calls=None):
         """Wrap each kernel's wrapper at its sites; returns the dict that
-        the wrapped calls fill with the inputs of the largest calls."""
+        the wrapped calls fill with the inputs of the largest calls.  With
+        `fs_calls`, K8's and K9's calls are also counted by shape there,
+        with a copy of each shape's first inputs."""
         largest = {}
 
         def keep_largest(name, fn):
@@ -928,6 +992,10 @@ def main() -> None:
                        name in GP_KERNELS else 0)
                 if ts[0].is_cuda and size > largest.get(key, (0, None))[0]:
                     largest[key] = (size, copy(args))
+                if fs_calls is not None and name in FS_KERNELS:
+                    shape = (name, fs_shape(name, args))
+                    count, first = fs_calls.get(shape, (0, None))
+                    fs_calls[shape] = (count + 1, first or copy(args))
                 return fn(*args)
             return wrapped
 
@@ -971,6 +1039,23 @@ def main() -> None:
         return sum(t.numel() * t.element_size() for _, args in
                    largest.values() for t in tensors(args)) / 1e9
 
+    def fs_device_ms(phase, label, fs_calls, counts):
+        """K8's and K9's launches in one prove and their summed device ms:
+        each shape's calls times its kernel's time on the card alone at
+        that shape (their work does not depend on the values)."""
+        for name in FS_KERNELS:
+            shapes = [(c, args) for (n, _), (c, args) in fs_calls.items()
+                      if n == name]
+            calls = sum(c for c, _ in shapes)
+            if calls != counts[name]:
+                fail(f"{phase}: {name} launched {counts[name]} times, "
+                     f"{calls} calls recorded")
+            ms = sum(c * event_ms(lambda: KERNEL[name][0](*args), 10)
+                     for c, args in shapes)
+            print(f"{phase}: {name} per {label} prove with device "
+                  f"Fiat-Shamir: {calls} launches in {len(shapes)} shapes, "
+                  f"{ms:.3f} ms summed on the card [{card}]", flush=True)
+
     def vm_path(phase, label, vm, program, want_steps, want_T,
                 by_batch=False, spans=False, host_fs=False, **trace_args):
         """Trace, set up, one prove (recorded, timed, then replayed),
@@ -992,7 +1077,8 @@ def main() -> None:
         print(f"{phase}: {label} traced to {len(steps)} steps ({len(rows)} "
               f"bytecode rows) in {trace_s:.2f} s, padded to T = 2^"
               f"{T.bit_length() - 1}", flush=True)
-        largest = start_recording(by_batch)
+        fs_calls = {} if host_fs else None
+        largest = start_recording(by_batch, fs_calls)
         nat.reset_launch_counts()
         t0 = time.perf_counter()
         srs_len = vm.required_srs_len(io, steps, rows)
@@ -1001,6 +1087,8 @@ def main() -> None:
         torch.cuda.synchronize()
         setup_v = time.perf_counter() - t0
         setup_counts = nat.launch_counts()
+        if fs_calls:
+            fs_calls.clear()            # the prove's calls alone
         torch.cuda.reset_peak_memory_stats()
         profiling.reset()
         profiling.enable(spans)
@@ -1019,6 +1107,8 @@ def main() -> None:
               f"{setup_v:.3f} s; main-path launches (setup + the prove) "
               f"{json.dumps(counts)}", flush=True)
         check_and_replay(phase, label, counts, largest)
+        if fs_calls is not None:
+            fs_device_ms(phase, label, fs_calls, prove_counts)
         t0 = time.perf_counter()
         vm.verify(pre_v, proof, com, debug_transcript=tr,
                   debug_accumulator=acc)
@@ -1782,7 +1872,8 @@ def main() -> None:
             "launches_gp_commit_path": gpc_counts[k.name],
             "launches_evm_fixtures": evm_counts[k.name],
             "launches_scaffold_prove": scaffold_counts.get(k.name, 0)}
-        for key in ("latency_bound_ms", "launch_ms"):
+        for key in ("latency_bound_ms", "serial_latency_bound_ms",
+                    "launch_ms"):
             if key in r:
                 row[key] = r[key]
         row.update(usage[k.name])

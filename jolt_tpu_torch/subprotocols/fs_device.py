@@ -13,7 +13,9 @@ its own transcript with them (`replay_and_check`): that rebuilds the
 challenges as host field elements and checks the device hash chain byte
 for byte.  The grand products' chained mode also draws their batching
 coefficients, builds their eq tables and appends their claims on the
-device (K8, utils/keccak_device.py), with one pull per grand product.
+device (K8, utils/keccak_device.py: one launch per layer for its claims,
+r_layer and the next layer's coefficients), with one pull per grand
+product.
 
 The transcript state is keccak_device's int64 [9] tensor.  Counts (rounds,
 batch sizes) are host ints.  Each function with a kernel runs its plain
@@ -44,7 +46,7 @@ FS_ROUND = nat.CudaKernel(
      nat.vptr, nat.vptr, nat.vptr, nat.i64, nat.i64, nat.u32p, nat.u32p,
      nat.vptr],
     "jolt_tpu/subprotocols/fs_device.py:134 fs_round_jit (a jax.jit "
-    "program; no pallas_call)", "fs_round_kernel", 1)
+    "program; no pallas_call)", "fs_round_kernel", 128)
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,6 +90,13 @@ def _vinv_limbs(spec: FieldSpec, npts: int, device) -> torch.Tensor:
 def transcript_const_words():
     return (kd.message_payload_words(b"UniPoly_begin"),
             kd.message_payload_words(b"UniPoly_end"))
+
+
+@functools.lru_cache(maxsize=None)
+def _label_words():
+    """The two labels' 16 words as K9 takes them (a host array)."""
+    begin_w, end_w = transcript_const_words()
+    return nat.words([*begin_w, *end_w])
 
 
 def interpolate(spec: FieldSpec, evals: torch.Tensor) -> torch.Tensor:
@@ -179,13 +188,12 @@ def fs_round(spec: FieldSpec, evals: torch.Tensor, prev: torch.Tensor,
     rj = torch.empty(L, dtype=torch.int32, device=dev)
     prev_out = torch.empty(L, dtype=torch.int32, device=dev)
     state_out = torch.empty(9, dtype=torch.int64, device=dev)
-    begin_w, end_w = transcript_const_words()
     FS_ROUND.launch(
         nat.ptr(evals), evals.stride(0), evals.shape[1], nat.ptr(prev),
         nat.ptr(_vinv_limbs(spec, degree + 1, dev)), nat.ptr(state),
         nat.ptr(state_out), nat.ptr(comp), nat.ptr(rj), nat.ptr(prev_out),
-        degree, int(use_hint), nat.words([*begin_w, *end_w]),
-        kd.field_words(spec), nat.stream(comp))
+        degree, int(use_hint), _label_words(), kd.field_words(spec),
+        nat.stream(comp))
     return comp, rj, prev_out, state_out
 
 
@@ -201,18 +209,24 @@ def challenge_vector_dev(spec: FieldSpec, state: torch.Tensor, count: int):
     return chals, state
 
 
-def challenge_scalar_dev(spec: FieldSpec, state: torch.Tensor):
-    """One challenge: (c [16], state')."""
-    chals, state = challenge_vector_dev(spec, state, 1)
-    return chals[:, 0], state
-
-
 def append_scalars_dev(spec: FieldSpec, state: torch.Tensor,
                        scalars: torch.Tensor, count: int) -> torch.Tensor:
     """Append scalars[:, i] for i < count as scalar events -> state'."""
     state, _ = kd.transcript_events(spec, state, scalars,
                                     [(kd.APPEND, count)])
     return state
+
+
+def layer_events_dev(spec: FieldSpec, state: torch.Tensor,
+                     claims: torch.Tensor, count: int, n_next: int):
+    """A chained GKR layer's closing events in one K8 launch: append
+    claims[:, i] for i < count, draw r_layer, then draw the next layer's
+    n_next batching coefficients (none: an empty segment).  Returns
+    (r_layer [16], coefficients [16, n_next], state')."""
+    state, chals = kd.transcript_events(
+        spec, state, claims, [(kd.APPEND, count), (kd.CHALLENGE, 1),
+                              (kd.CHALLENGE, n_next)])
+    return chals[:, 0], chals[:, 1:], state
 
 
 def eq_masked_br(spec: FieldSpec, rs: torch.Tensor, k: int) -> torch.Tensor:

@@ -173,7 +173,7 @@ class BatchedDenseGrandProduct:
             ops = sum((1 << j) * (B * 7 + 4)
                       for j in range(len(self.layers) - 1))
             with span("BatchedDenseGP::chained", ops=ops):
-                pend, (state, _, _) = _chain_prove_dense(
+                pend, (state, _, _, _) = _chain_prove_dense(
                     self.spec, self.layers, transcript)
                 comp_ints, row_ints = _chain_pull(self.spec, pend)
                 layer_proofs, r_grand_product, _, _ = _chain_replay_dense(
@@ -186,13 +186,18 @@ class BatchedDenseGrandProduct:
         return BatchedGrandProductProof(layer_proofs), r_grand_product
 
 
-def _chain_prove_dense(spec: FieldSpec, layers: list, transcript: Transcript):
+def _chain_prove_dense(spec: FieldSpec, layers: list, transcript: Transcript,
+                       n_after: int = 0):
     """Every dense layer's challenge vector, eq table, rounds (K2 -> K9 ->
     K3) and claim appends on the device with no host sync; each layer is
-    released as it is consumed.  Returns (pend, (state, rs, claims)): pend
-    holds per layer (rounds k, its compressed polys [16, 3] each, its claim
-    row [16, 2B]) on the device; rs [16, k + 1] the next r_grand_product
-    and claims [16, B] the folded claims."""
+    released as it is consumed.  A layer's claim appends, its r_layer and
+    the next layer's challenge vector are one K8 launch; after the last
+    layer, that launch draws the `n_after` challenges that follow it.
+    Returns (pend, (state, rs, claims, after)): pend holds per layer
+    (rounds k, its compressed polys [16, 3] each, its claim row [16, 2B])
+    on the device; rs [16, k + 1] the next r_grand_product, claims [16, B]
+    the folded claims and after [16, n_after] the challenges drawn after
+    them."""
     n_layers = len(layers)
     B = layers[0][0].shape[0]
     dev = layers[0][0].device
@@ -201,11 +206,11 @@ def _chain_prove_dense(spec: FieldSpec, layers: list, transcript: Transcript):
     claims_dev = fd.fmul(spec, top_l[..., 0].T, top_r[..., 0].T)  # [16, B]
     rs = fd.zeros(spec, (0,), dev)
     pend = []
+    coeffs, state = fsd.challenge_vector_dev(spec, state, B)
     for li in range(n_layers - 1, -1, -1):
         l, r = layers[li]
         layers[li] = None
         k = n_layers - 1 - li                       # rounds of this layer
-        coeffs, state = fsd.challenge_vector_dev(spec, state, B)
         prev = fsd.fold_claims_dev(spec, claims_dev, coeffs)
         eq = fsd.eq_masked_br(spec, rs, k)
         comps, rrounds = [], fd.zeros(spec, (k,), dev)
@@ -217,12 +222,12 @@ def _chain_prove_dense(spec: FieldSpec, layers: list, transcript: Transcript):
             comps.append(comp)
             fsd.set_col(rrounds, rj, j)
         lefts, rights, inter = fsd.pair_finals_dev(spec, l, r)
-        state = fsd.append_scalars_dev(spec, state, inter, 2 * B)
-        r_layer, state = fsd.challenge_scalar_dev(spec, state)
+        r_layer, coeffs, state = fsd.layer_events_dev(
+            spec, state, inter, 2 * B, B if li else n_after)
         claims_dev = fsd.fold_lr_dev(spec, lefts, rights, r_layer)
         rs = fsd.rebuild_rs(rrounds, r_layer, k)
         pend.append((k, comps, inter))
-    return pend, (state, rs, claims_dev)
+    return pend, (state, rs, claims_dev, coeffs)
 
 
 def _chain_pull(spec: FieldSpec, pend: list, extra_comps: list = (),
@@ -520,11 +525,12 @@ class ToggledBatchedGrandProduct:
         ops = (sum((1 << j) * (m * 7 + 4) for j in range(k_toggle - 1))
                + 2 * T * (m * 8 + 4))
         with span("ToggledGP::chained", ops=ops):
-            pend, (state, rs, claims_dev) = _chain_prove_dense(
-                spec, self.layers, transcript)
+            # the last dense layer's K8 launch draws the toggle rounds'
+            # challenge vector
+            pend, (state, rs, claims_dev, coeffs) = _chain_prove_dense(
+                spec, self.layers, transcript, n_after=m)
             # toggle rounds (grand_product.rs:1422-1474): log T rounds,
             # claims appended per (flag, fingerprint) pair, no r_layer
-            coeffs, state = fsd.challenge_vector_dev(spec, state, m)
             prev = fsd.fold_claims_dev(spec, claims_dev, coeffs)
             eq = fsd.eq_masked_br(spec, rs, k_toggle)
             flags = _expand_flag_bits(spec, self._flag_bits)

@@ -16,8 +16,11 @@ plain versions below stay within torch's signed integers; each is below
 `keccak_f_plain` / `transcript_events_plain` are plain PyTorch (lanes as
 lo/hi uint32 halves, masked to 32 bits after every shift).  The kernel K8
 (`transcript_events_kernel`, csrc/keccak.cu) runs a list of events in one
-thread on native uint64 lanes; `transcript_events` launches it on CUDA
-tensors and runs the plain version on CPU tensors.
+block: all threads put the appended scalars in canonical form, one warp
+hashes the events in order (a Keccak-f whose state is spread over the
+warp's lanes), and all threads put the challenges in Montgomery form;
+`transcript_events` launches it on CUDA tensors and runs the plain
+version on CPU tensors.
 """
 from __future__ import annotations
 
@@ -53,13 +56,15 @@ _ROT_TABLE = [[0, 36, 3, 41, 18], [1, 44, 10, 45, 2], [62, 6, 43, 15, 61],
 # challenge column (csrc/keccak.cu MAX_SEGS).
 APPEND, CHALLENGE = 0, 1
 MAX_SEGS = 16
+SMEM_EVENTS = 512     # events whose words fit K8's shared memory
+#   (csrc/keccak.cu K8_SMEM_EVENTS); a longer list gets a scratch tensor
 
 TRANSCRIPT_EVENTS = nat.CudaKernel(
     "transcript_events", "keccak", "jt_transcript_events",
     [nat.vptr, nat.vptr, nat.vptr, nat.i64, nat.i64, nat.vptr, nat.i64,
-     nat.i64, nat.u32p, nat.u32p, nat.u32p, nat.vptr],
+     nat.vptr, nat.i64, nat.u32p, nat.u32p, nat.u32p, nat.vptr],
     "jolt_tpu/utils/keccak_device.py:157 transcript_event (a jax.jit "
-    "program; no pallas_call)", "transcript_events_kernel", 1)
+    "program; no pallas_call)", "transcript_events_kernel", 256)
 
 
 @functools.lru_cache(maxsize=8)
@@ -171,9 +176,11 @@ def words_to_mont(spec: FieldSpec, words: torch.Tensor) -> torch.Tensor:
     return arith.mont_mul(spec, r2, limbs)
 
 
+@functools.lru_cache(maxsize=None)
 def field_words(spec: FieldSpec):
     """The constants K8 and K9 take by value: FieldSpec.words32() (p and
-    -p^-1 mod 2^32), then R^2 mod p as eight LE words."""
+    -p^-1 mod 2^32), then R^2 mod p as eight LE words (a host array, built
+    once per field: the kernels only read it)."""
     return nat.words(spec.words32()
                      + [(spec.r2 >> (32 * k)) & M32 for k in range(8)])
 
@@ -235,7 +242,7 @@ def transcript_events(spec: FieldSpec, state: torch.Tensor,
     _check_state("transcript_events", state)
     segments = [(int(k), int(c)) for k, c in segments]
     m = 0 if scalars is None else scalars.shape[1]
-    _, n_chal = _check_segments(segments, m)
+    n_app, n_chal = _check_segments(segments, m)
     if state.device.type == "cpu" and (scalars is None
                                        or scalars.device.type == "cpu"):
         return transcript_events_plain(spec, state, scalars, segments)
@@ -250,6 +257,9 @@ def transcript_events(spec: FieldSpec, state: torch.Tensor,
             raise ValueError("transcript_events: tensors on several devices")
     out_state = torch.empty(9, dtype=torch.int64, device=state.device)
     chals = torch.empty((L, n_chal), dtype=torch.int32, device=state.device)
+    scratch = (torch.empty(8 * (n_app + n_chal), dtype=torch.int32,
+                           device=state.device)
+               if n_app + n_chal > SMEM_EVENTS else None)
     pad = [(0, 0)] * (MAX_SEGS - len(segments))
     kinds = nat.words(k for k, _ in segments + pad)
     counts = nat.words(c for _, c in segments + pad)
@@ -258,6 +268,7 @@ def transcript_events(spec: FieldSpec, state: torch.Tensor,
         nat.ptr(state), nat.ptr(out_state), nat.ptr(sc),
         sc.stride(0) if scalars is not None else 0,
         sc.stride(1) if scalars is not None else 0, nat.ptr(chals),
-        max(n_chal, 1), len(segments), kinds, counts, field_words(spec),
+        max(n_chal, 1), None if scratch is None else nat.ptr(scratch),
+        len(segments), kinds, counts, field_words(spec),
         nat.stream(out_state))
     return out_state, chals

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """Time the port's kernels, one checkout at a time, by one method.
 
-    python3 scripts/time_kernels.py [--root DIR]
+    python3 scripts/time_kernels.py [--root DIR] [--only fs]
 
 on a CUDA card.  Imports jolt_tpu_torch from DIR (default: this
 checkout), builds its kernel libraries, and times each kernel wrapper with
-chip_smoke.py's `event_ms` (CUDA events around 10 calls, one call left
-running) on random reduced inputs made from seed 0: at the shapes of
+chip_smoke.py's `event_ms` (CUDA events around 10 calls) on random
+reduced inputs made from seed 0: at the shapes of
 chip_smoke.py's phase 2, at each kernel's largest call of the fib
 T = 2^16 prove, and K2-K4 at the sha2-chain prove's GP batches (B = 81
-and 110; a checkout whose K2 refuses them prints so).  The wrappers' signatures are the same in every checkout
-of the port, so two checkouts timed in turns on one card (A, B, B, A)
-compare by the same clock and the same method.
+and 110; a checkout whose K2 refuses them prints so); then the device
+Fiat-Shamir kernels at the main path's shapes: K8 drawing 110 challenges,
+appending 220 claims, a chained GKR layer's merged list (220 appends, 1
+challenge, 110 challenges) and 1,000 appends, and K9 at d = 2 and 3 with
+the hint and d = 8 without.  K8 and K9 are timed twice: on the card alone
+(`event_ms` holds the card while the host enqueues) and with the host's
+enqueue time in the way (`hold=False`, the earlier method).  `--only
+fs` times K8 and K9 alone.  The wrappers' signatures are the same in
+every checkout of the port, so two checkouts timed in turns on one card
+(A, B, B, A) compare by the same clock and the same method.
 
 Prints the card's name and power limit, a line per shape, and last a
 JSON line {"root": DIR, "card": ..., "ms": {shape: ms}}.  Imports
@@ -32,6 +39,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose jolt_tpu_torch is timed")
+    ap.add_argument("--only", choices=("all", "fs"), default="all",
+                    help="fs: K8 and K9 alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -46,6 +55,8 @@ def main() -> None:
     from jolt_tpu_torch.field import device as fd
     from jolt_tpu_torch.field import kernels as fk
     from jolt_tpu_torch.field.spec import fq_spec, fr_spec
+    from jolt_tpu_torch.subprotocols import fs_device as fsd
+    from jolt_tpu_torch.utils import keccak_device as kd
 
     card = smoke.card_line()
     print(card, flush=True)
@@ -74,6 +85,40 @@ def main() -> None:
         ms[label] = smoke.event_ms(fn, 10)
         print(f"{label}: {ms[label]:.4f} ms", flush=True)
 
+    if args.only == "all":
+        k1_to_k7_rows(FR, FQ, fe, layers, rc, row, fk, ck)
+    state = torch.randint(0, 1 << 32, (9,), generator=gen, device=dev,
+                          dtype=torch.int64)
+    claims = fe(FR, 1000)
+    fs_rows = [
+        ("K8 110 challenges", None, [(kd.CHALLENGE, 110)]),
+        ("K8 220 appends", claims[:, :220], [(kd.APPEND, 220)]),
+        ("K8 220 appends, 1 challenge, 110 challenges", claims[:, :220],
+         [(kd.APPEND, 220), (kd.CHALLENGE, 1), (kd.CHALLENGE, 110)]),
+        ("K8 1000 appends", claims, [(kd.APPEND, 1000)])]
+    for label, sc, segs in fs_rows:
+        fs_row(ms, label, smoke, lambda: kd.transcript_events(
+            FR, state, sc, segs))
+    prev = fe(FR, 1)[:, 0]
+    for d, hint, n in ((2, True, 2), (3, True, 3), (8, False, 9)):
+        evals = fe(FR, n)
+        fs_row(ms, f"K9 d = {d}, evals [16,{n}]" + (", hint" if hint
+                                                    else ""), smoke,
+               lambda: fsd.fs_round(FR, evals, prev, state, d, hint))
+    print(json.dumps({"root": str(args.root), "card": card, "ms": ms}))
+
+
+def fs_row(ms, label, smoke, fn):
+    """K8 or K9 timed on the card alone and with the host in the way."""
+    ms[label] = smoke.event_ms(fn, 10)
+    ms[label + " (enqueue)"] = smoke.event_ms(fn, 10, hold=False)
+    print(f"{label}: {ms[label]:.4f} ms on the card alone, "
+          f"{ms[label + ' (enqueue)']:.4f} ms with the host's enqueue",
+          flush=True)
+
+
+def k1_to_k7_rows(FR, FQ, fe, layers, rc, row, fk, ck):
+    """K1-K7 at chip_smoke.py's phase-2 shapes and the VM's largest."""
     a = fe(FR, 4, 1 << 20)
     b = fe(FR, 1, 1)
     row("K1 [16,4,2^20] x [16,1,1] Fr", lambda: fk.mont_mul(FR, a, b))
@@ -107,7 +152,6 @@ def main() -> None:
     row("K6 [16,16,2^18] x 6", lambda: ck.jac_add(p1, p2))
     p1 = tuple(fe(FQ, 1 << 20) for _ in range(3))
     row("K7 [16,2^20] x 3", lambda: ck.jac_double(p1))
-    print(json.dumps({"root": str(args.root), "card": card, "ms": ms}))
 
 
 if __name__ == "__main__":

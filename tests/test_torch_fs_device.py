@@ -10,8 +10,8 @@ against jolt_tpu's, on the CPU (the kernels' plain versions), small.
   rounds, each round starting from jolt_tpu's state carried across by
   convert.fs_state_from_jax;
 - the chained-mode glue (challenge_vector_dev, append_scalars_dev,
-  eq_masked_br, rebuild_rs, fold_lr_dev, pair_finals_dev,
-  toggle_finals_dev) against host oracles;
+  layer_events_dev, eq_masked_br, rebuild_rs, fold_lr_dev,
+  pair_finals_dev, toggle_finals_dev) against host oracles;
 - each sumcheck-shaped prover (the dense and the toggled grand product,
   prove_arbitrary, prove_arbitrary_bot with a claim, the opening reduction
   over polynomials of unequal sizes, the instruction lookups' primary
@@ -36,6 +36,7 @@ The tolerance is zero.
 import importlib.util
 import json
 import random
+import re
 from pathlib import Path
 
 import numpy as np
@@ -173,6 +174,170 @@ def test_scalar_be_words_and_words_to_mont():
     assert fd.to_int(FR, one) == ((1 << 256) - 1) % p
 
 
+# ---------------------------------------------------------------------------
+# K8's and K9's warp Keccak, modelled in numpy on its own lane tables
+# ---------------------------------------------------------------------------
+
+U32 = np.uint64(0xFFFFFFFF)
+
+
+def _cu_array(name: str) -> np.ndarray:
+    """A constant array of csrc/keccak.cu, read from the source's text."""
+    src = (ROOT / "jolt_tpu_torch" / "csrc" / "keccak.cu").read_text()
+    body = re.search(name + r"\[[^=]*= \{(.*?)\};", src, re.S)[1]
+    body = re.sub(r"//[^\n]*", "", body)
+    return np.array([int(v.rstrip("ul"), 0)
+                     for v in re.findall(r"0x[0-9a-fA-F]+ull|\d+", body)],
+                    dtype=np.uint64)
+
+
+def _fsl(lo, hi, s):
+    """__funnelshift_l(lo, hi, s): the high word of (hi:lo) << (s mod 32)."""
+    v = (hi << np.uint64(32)) | lo
+    return ((v << (np.asarray(s, np.uint64) & np.uint64(31)))
+            >> np.uint64(32)) & U32
+
+
+class _WarpKeccak:
+    """keccak.cu's keccak_f_warp, kf_load_state and kf_absorb over the 32
+    lanes of a warp (lane t holds state lane t): a shuffle from lane src
+    is v[src]."""
+
+    def __init__(self):
+        tab = _cu_array("KF_TABLE").reshape(32, 16).astype(np.int64)
+        self.column, self.left, self.right = tab[:, 0:4], tab[:, 4], tab[:, 5]
+        self.chi, self.rot = tab[:, 6:9], tab[:, 9]
+        self.rc = _cu_array("KECCAK_RC")
+        self.lane = np.arange(32)
+
+    @staticmethod
+    def load(words):
+        """Lanes 0-24 from a state's 50 words."""
+        lo = np.zeros(32, np.uint64)
+        hi = np.zeros(32, np.uint64)
+        lo[:25], hi[:25] = words[0::2], words[1::2]
+        return lo, hi
+
+    def permute(self, lo, hi):
+        iota = self.lane == 0
+        for rnd in range(24):
+            cl, ch = lo.copy(), hi.copy()
+            for j in range(4):
+                cl ^= lo[self.column[:, j]]
+                ch ^= hi[self.column[:, j]]
+            ml, mh = cl[self.left], ch[self.left]
+            pl, ph = cl[self.right], ch[self.right]
+            al = lo ^ ml ^ _fsl(ph, pl, 1)
+            ah = hi ^ mh ^ _fsl(pl, ph, 1)
+            P, Q = _fsl(al, ah, self.rot), _fsl(ah, al, self.rot)
+            swap = self.rot >= 32
+            bh, bl = np.where(swap, Q, P), np.where(swap, P, Q)
+            rl, rh = self.rc[rnd] & U32, self.rc[rnd] >> np.uint64(32)
+            out = []
+            for b, rk in ((bl, rl), (bh, rh)):
+                c = [b[self.chi[:, j]] for j in range(3)]
+                out.append((c[0] ^ np.where(iota, rk, np.uint64(0)))
+                           ^ (~c[1] & U32 & c[2]))
+            lo, hi = out
+        return lo, hi
+
+    def event(self, lo, hi, n, payload):
+        """kf_absorb of event n (payload: 8 words, or None) and the
+        permutation."""
+        t = self.lane
+        lo, hi = np.where(t < 4, lo, 0), np.where(t < 4, hi, 0)
+        hi[7] = int.from_bytes(int(n).to_bytes(4, "big"), "little")
+        if payload is not None:
+            lo[8:12], hi[8:12] = payload[0::2], payload[1::2]
+        lo[8 if payload is None else 12] ^= np.uint64(1)
+        hi[16] ^= np.uint64(0x80000000)
+        return self.permute(lo, hi)
+
+
+def test_warp_keccak_tables_run_keccak_f():
+    """One permutation through KF_TABLE's shuffles == keccak_f_plain, on
+    random states."""
+    wk = _WarpKeccak()
+    rng = np.random.default_rng(11)
+    for _ in range(3):
+        words = rng.integers(0, 1 << 32, size=50, dtype=np.uint64)
+        lo, hi = wk.permute(*wk.load(words))
+        want = kd.keccak_f_plain(torch.from_numpy(
+            words.astype(np.int64))).numpy().astype(np.uint64)
+        assert (lo[:25] == want[0::2]).all() and (hi[:25] == want[1::2]).all()
+
+
+def test_warp_keccak_events_match_transcript_event():
+    """kf_load_state, then appends and challenges through kf_absorb and the
+    warp permutation: the digest lanes equal transcript_event's state."""
+    wk = _WarpKeccak()
+    rng = np.random.default_rng(12)
+    state = torch.from_numpy(np.append(rng.integers(0, 1 << 32, size=8),
+                                       (1 << 32) - 3).astype(np.int64))
+    words = np.zeros(50, np.uint64)
+    words[:8] = state[:8].numpy()
+    lo, hi = wk.load(words)
+    n = int(state[8])
+    for payload in (rng.integers(0, 1 << 32, size=8, dtype=np.uint64), None,
+                    None, rng.integers(0, 1 << 32, size=8, dtype=np.uint64)):
+        lo, hi = wk.event(lo, hi, n, payload)
+        n = (n + 1) & 0xFFFFFFFF
+        state = kd.transcript_event(state, state.new_zeros(0) if payload is
+                                    None else torch.from_numpy(
+                                        payload.astype(np.int64)))
+        digest = np.stack([lo[:4], hi[:4]], 1).reshape(8)
+        assert (digest.astype(np.int64) == state[:8].numpy()).all()
+
+
+def test_merged_layer_events_equal_the_three_calls():
+    """A chained layer's one K8 list (appends, r_layer, the next layer's
+    coefficients) == the three lists it replaces, run one after another."""
+    rng = random.Random(13)
+    host = Transcript(b"merged")
+    state = fsd.state_to_device(host, "cpu")
+    claims = fd.ints_to_device(FR, [rng.randrange(FR.p) for _ in range(6)],
+                               "cpu")
+    merged = kd.transcript_events_plain(
+        FR, state, claims, [(kd.APPEND, 6), (kd.CHALLENGE, 1),
+                            (kd.CHALLENGE, 3)])
+    s1, _ = kd.transcript_events_plain(FR, state, claims, [(kd.APPEND, 6)])
+    s2, r_layer = kd.transcript_events_plain(FR, s1, None,
+                                             [(kd.CHALLENGE, 1)])
+    s3, coeffs = kd.transcript_events_plain(FR, s2, None,
+                                            [(kd.CHALLENGE, 3)])
+    assert torch.equal(merged[0], s3)
+    assert torch.equal(merged[1], torch.cat([r_layer, coeffs], dim=1))
+
+
+def test_chained_grand_products_launch_k8_once_per_layer(monkeypatch,
+                                                         inputs):
+    """K8's calls in the chained grand products: one for the first
+    coefficients and one per layer; the toggled one adds its final
+    claim appends (its toggle vector rides on the last layer's call)."""
+    for k, v in ON.items():
+        monkeypatch.setenv(k, v)
+    calls = []
+    events = kd.transcript_events
+
+    def counted(*args):
+        calls.append(args[3])
+        return events(*args)
+    monkeypatch.setattr(kd, "transcript_events", counted)
+    leaves = fd.ints_to_device(FR, inputs["gp_leaves"].tolist(), "cpu")
+    fps = fd.ints_to_device(FR, inputs["tg_fps"].tolist(), "cpu")
+    dense = gp.BatchedDenseGrandProduct.construct(leaves, FR)
+    n_dense = dense.num_layers()
+    dense.prove(Transcript(b"gp"))
+    assert len(calls) == n_dense + 1
+    calls.clear()
+    tg = gp.ToggledBatchedGrandProduct(torch.from_numpy(inputs["tg_bits"]),
+                                       fps, FR)
+    n_tg = len(tg.layers)
+    tg.prove(Transcript(b"tg"))
+    assert len(calls) == n_tg + 2
+    assert calls[-2][-1] == (kd.CHALLENGE, tg.real_batch)
+
+
 @pytest.mark.parametrize("npts", [2, 3, 4, 9])
 def test_vinv_mont_inverts_the_vandermonde_matrix(npts):
     """V^-1 V = I with V[x][j] = x^j (host integers)."""
@@ -261,8 +426,16 @@ def test_chain_glue_against_host_oracles():
         FR, vals, "cpu"), 4)
     for v in vals[:4]:
         host.append_scalar(FElt(v, FR))
-    c, state = fsd.challenge_scalar_dev(FR, state)
-    assert fd.to_int(FR, c) == host.challenge_scalar().v
+    for n_next in (2, 0):       # a layer's claims, r_layer, next coefficients
+        claims = [rng.randrange(FR.p) for _ in range(6)]
+        c, nxt, state = fsd.layer_events_dev(
+            FR, state, fd.ints_to_device(FR, claims, "cpu"), 6, n_next)
+        for v in claims:
+            host.append_scalar(FElt(v, FR))
+        assert fd.to_int(FR, c) == host.challenge_scalar().v
+        assert nxt.shape == (16, n_next)
+        assert [int(v) for v in fd.device_to_ints(FR, nxt).tolist()] == \
+            [x.v for x in host.challenge_vector(n_next)]
     assert fsd.state_bytes(state) == (host.state, host.n_rounds)
 
     rs_vals = [rng.randrange(FR.p) for _ in range(4)]

@@ -8,8 +8,10 @@ operand; K2 and K5 on edge residues (0, 1, p - 1, R mod p, ...), where the
 kernels' lazy reduction crosses p and 2p, and on P + (-P); K2 called again
 and again, which checks that its last-block counter is reset; K8 (the
 transcript events) against its plain version and the host transcript over
-chained appends and challenges, and K9 (the device Fiat-Shamir round) at
-the degrees the provers use; K3 taking its challenge from the card.  Every
+chained appends and challenges, at a chained GKR layer's merged list,
+past its shared memory and with empty segments, and K9 (the device
+Fiat-Shamir round) at every degree it takes; K3 taking its challenge from
+the card.  Every
 comparison is of integer
 limbs or transcript bytes: the tolerance is zero.  This file imports nothing of JAX, so on a
 machine without it run it as
@@ -373,6 +375,43 @@ def test_transcript_events_chain(dev):
     assert big > 0
 
 
+@pytest.mark.parametrize("segs", [
+    [(kd.APPEND, 2 * B), (kd.CHALLENGE, 1), (kd.CHALLENGE, B)]
+    for B in (81, 110, 128)] + [
+    [(kd.APPEND, 1000)],
+    [(kd.APPEND, 600), (kd.CHALLENGE, 0), (kd.CHALLENGE, 300)],
+    [(kd.CHALLENGE, 0), (kd.APPEND, 0)],
+    [(kd.APPEND, 3), (kd.CHALLENGE, 0), (kd.APPEND, 0), (kd.CHALLENGE, 2),
+     (kd.APPEND, 0)]],
+    ids=["layer81", "layer110", "layer128", "appends1000", "scratch900",
+         "empty", "empty_between"])
+def test_transcript_events_lists(dev, segs):
+    """K8 at a chained GKR layer's merged list (2B claims, r_layer, the
+    next B coefficients) for the full VM's batches, past the block's
+    threads and shared memory (1,000 appends; 900 events), and with empty
+    segments: == its plain version == the host transcript, in one
+    launch."""
+    spec = fr_spec()
+    host = Transcript(b"k8 lists")
+    state = fsd.state_to_device(host, dev)
+    n_app = sum(c for k, c in segs if k == kd.APPEND)
+    vals = _edge_scalars(spec, max(n_app, 1), seed=n_app)
+    sc = fd.ints_to_device(spec, vals, dev)
+    got = _launched(kd.TRANSCRIPT_EVENTS,
+                    lambda: kd.transcript_events(spec, state, sc, segs))
+    _equal(got, kd.transcript_events_plain(spec, state, sc, segs))
+    want, col = [], 0
+    for kind, count in segs:
+        for _ in range(count):
+            if kind == kd.APPEND:
+                host.append_scalar(FElt(vals[col], spec))
+                col += 1
+            else:
+                want.append(host.challenge_scalar().v)
+    assert fsd.state_bytes(got[0]) == (host.state, host.n_rounds)
+    assert [int(v) for v in fd.device_to_ints(spec, got[1]).tolist()] == want
+
+
 def test_digest_reduction_on_the_card(dev):
     """K8's and K9's challenge conversion is field.cuh's fmul(R^2, v) with
     the digest v in the b slot; K1 runs the same routine: all-ones and
@@ -392,12 +431,14 @@ def test_digest_reduction_on_the_card(dev):
 
 
 @pytest.mark.parametrize("degree,use_hint,n_evals",
-                         [(2, True, 2), (3, True, 3), (3, True, 4),
-                          (3, False, 4), (8, False, 9)])
+                         [(d, hint, n) for d in range(1, 9)
+                          for hint, n in ((True, d), (True, d + 1),
+                                          (False, d + 1))])
 def test_fs_round(dev, degree, use_hint, n_evals):
-    """K9 == its plain version at the provers' degrees: 2 (the opening
-    reduction) and 3 (GKR, toggle, Spartan) with the hint, and 8 (the
-    full VM's primary sumcheck) without; edge residues."""
+    """K9 == its plain version at every degree it takes (1..8: 2 is the
+    opening reduction, 3 GKR, toggle and Spartan, 8 the full VM's primary
+    sumcheck), with the hint (the evaluation at 1 left out or given) and
+    without; edge residues."""
     spec = fr_spec()
     host = Transcript(b"k9")
     state = fsd.state_to_device(host, dev)
