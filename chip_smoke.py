@@ -26,8 +26,9 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      at the main path's shapes (a challenge vector of 110, 220 appends,
      a chained GKR layer's one list: 220 appends, 1 challenge, 110
      challenges),
-     K9 (the sumcheck round) at d = 2 and 3 with the hint and at the full
-     VM's primary degree 8 without it, on edge residues;
+     K9 (the sumcheck round) at d = 2 and 3 with the hint, at the full
+     VM's primary degree 8 without it, and past it at d = 9 (the hint)
+     and d = 12, on edge residues;
   3. the main path begins (launch counts set to 0): HyperKZG setup of the
      2^20-point SRS, generated on the card; its first 2^17 points must equal
      fixtures/srs/srs_131072_6a6f6c74.npz bit for bit;
@@ -148,7 +149,24 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      BatchedDenseGP::chained, ToggledGP::chained,
      Sumcheck::prove_arbitrary) and at least one
      mont_mul_kernel (K1) kernel event; the child's span table is
-     printed.
+     printed;
+ 16. the multi-device prover (parallel/sharding.py; launch counts set to
+     0 before it): with more than one card a real mesh over every card,
+     else a virtual mesh on cuda:0 (every shard on the one card, each step
+     run once per shard): (a) one GKR round at B = 110 circuits (padded
+     to the mesh, 4 shards on one card), s = 2^15 per side, whose
+     evaluations and bound layers must equal one unsharded K2 and K3
+     call, with K2 and K3 launched once per shard; (b) the HyperKZG batch
+     commit of phase 11's 2^20 polynomial with phase 3's SRS split over
+     the mesh (K5 per shard, K6 across shards) must equal the unsharded
+     commitment, and sharded_msm (the window MSM: K6, K7) over 2^10
+     points the host MSM; (c) sha2-chain(13) on rv32i_vm() at T = 2^16
+     with HyperKZG through JoltVM.prove(mesh=) (2 shards on one card),
+     device Fiat-Shamir on (K9; the grand products are not chained on
+     a mesh, as in jolt_tpu, so K8 does not launch): K1-K6 and K9 must
+     launch, its state_history must equal phase 8's first prove's, its
+     output hashlib's; it verifies, a bumped opening is rejected; its
+     seconds and launches are printed.
 Phase 1 also builds the native tracer and Keccak (g++) from their sources
 and prints the compiler and the libraries' paths.  Then a {"kernels":
 [...]} JSON line, the card line again, and last {"ok": true, "device":
@@ -222,6 +240,11 @@ QUARK_KERNELS = ("mont_mul", "gp_pair_evals", "gp_pair_bind", "fs_round",
                  "jac_add")
 GP_COMMIT_LOGN = 20
 GP_COMMIT_KERNELS = ("mont_mul", "proj_cadd", "jac_add")
+# phase 16 (c): the mesh prove's kernels.  On a mesh the grand products
+# are not chained (jolt_tpu's _chain_ok), so K8 does not launch; K6
+# folds the sharded commit's per-shard sums
+MESH_KERNELS = ("mont_mul", "mont_mul_bl", "gp_pair_evals", "gp_pair_bind",
+                "proj_cadd", "jac_add", "fs_round")
 EVM_KERNELS = ("mont_mul", "mont_mul_bl", "gp_pair_evals", "gp_pair_bind",
                "proj_cadd")
 # phase 14 runs the scaffold's host.py as __main__ in a child process and
@@ -466,6 +489,7 @@ def main() -> None:
     from jolt_tpu_torch.field.host import FElt
     from jolt_tpu_torch.field.spec import FieldSpec, fq_spec, fr_spec
     from jolt_tpu_torch.instructions import XorInstruction
+    from jolt_tpu_torch.parallel import sharding as sh
     from jolt_tpu_torch.lasso import (SurgePreprocessing, generate_witness,
                                       surge_prove, surge_verify)
     from jolt_tpu_torch.commitment import fixtures as pfx
@@ -844,9 +868,12 @@ def main() -> None:
                            [(kd.APPEND, 220), (kd.CHALLENGE, 1),
                             (kd.CHALLENGE, 110)]), record=False)
     # K9: the GKR and toggle rounds (d = 3), the opening reduction (d = 2),
-    # both with the hint, and the full VM's primary sumcheck (d = 8)
+    # both with the hint, the full VM's primary sumcheck (d = 8), and
+    # degrees past it (9 with the hint, 12 without), whose buffers K9
+    # sizes at launch
     prev9 = edge_fe(FR, 1)[:, 0]
-    for d9, hint9, n9 in ((3, True, 3), (2, True, 2), (8, False, 9)):
+    for d9, hint9, n9 in ((3, True, 3), (2, True, 2), (8, False, 9),
+                          (9, True, 9), (12, False, 13)):
         compare("phase 2", "fs_round", f"d = {d9}, evals [16,{n9}] edge "
                 f"residues" + (", the hint" if hint9 else ""),
                 (FR, edge_fe(FR, n9), prev9, st8, d9, hint9),
@@ -1056,6 +1083,8 @@ def main() -> None:
                   f"Fiat-Shamir: {calls} launches in {len(shapes)} shapes, "
                   f"{ms:.3f} ms summed on the card [{card}]", flush=True)
 
+    histories = {}              # each VM path's transcript, by label
+
     def vm_path(phase, label, vm, program, want_steps, want_T,
                 by_batch=False, spans=False, host_fs=False, **trace_args):
         """Trace, set up, one prove (recorded, timed, then replayed),
@@ -1097,6 +1126,7 @@ def main() -> None:
         torch.cuda.synchronize()
         prove_v = time.perf_counter() - t0
         profiling.enable(False)
+        histories[label] = tr.state_history
         if spans:
             span_check(phase, label, prove_v, CHAIN_SPANS)
         peak, held = torch.cuda.max_memory_allocated() / 1e9, held_gb(largest)
@@ -1841,6 +1871,142 @@ def main() -> None:
           f"every one of {len(TRACE_SPANS)} span names present", flush=True)
 
     phase_done("phase 15")
+
+    # -- phase 16: the multi-device prover (parallel/sharding.py) ---------
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        mesh_a = mesh_c = sh.make_mesh()
+        kind16 = f"a real mesh over {n_cards} cards"
+    else:
+        mesh_a, mesh_c = (sh.make_mesh(k, device=dev) for k in (4, 2))
+        kind16 = ("a virtual mesh on cuda:0 (one card: every shard on it, "
+                  "each step run once per shard)")
+    print(f"phase 16: {kind16}: {mesh_a} for (a) and (b), {mesh_c} for (c)",
+          flush=True)
+    nat.reset_launch_counts()
+    # (a) one GKR round at the full VM's read/write batch: B = 110
+    # circuits, s = 2^15 per side, against one unsharded K2 and K3 call
+    Ba, sa = 110, 1 << 15
+    la = rand_fe(FR, Ba, sa).movedim(0, 1).contiguous()
+    ra = rand_fe(FR, Ba, sa).movedim(0, 1).contiguous()
+    eqa, coa = rand_fe(FR, sa), rand_fe(FR, Ba)
+    rca = fd.scalar_to_device(FR, 0x1234567 ** 9, dev)
+    want_e = fk.gp_pair_evals(FR, la, ra, eqa, coa)
+    want_b = fk.gp_pair_bind(FR, la, ra, eqa, rca)
+    pla, pra = sh.maybe_shard_pair(mesh_a, (la, ra))
+    Bp = pla.length
+    copad = torch.cat([coa, fd.zeros(FR, (Bp - Ba,), dev)], dim=1)
+    before = nat.launch_counts()
+    got_a = sh.sharded_gp_round(mesh_a, FR, pla, pra, eqa, copad, rca)
+    torch.cuda.synchronize()
+    after = nat.launch_counts()
+    k23 = {k: after[k] - before[k] for k in GP_KERNELS}
+    if k23 != {k: mesh_a.size for k in GP_KERNELS}:
+        fail(f"phase 16 (a): K2/K3 launched {k23} times, not once per "
+             f"shard ({mesh_a.size})")
+    bad_a = [name for name, g, w in (
+        ("evals", got_a[0], want_e),
+        ("l", got_a[1].gather()[:Ba], want_b[0]),
+        ("r", got_a[2].gather()[:Ba], want_b[1]),
+        ("eq", got_a[3].gather(), want_b[2])) if not torch.equal(g, w)]
+    if bad_a or (got_a[1].gather()[Ba:] != 0).any():
+        fail(f"phase 16 (a): the sharded round's {bad_a or 'pad rows'} "
+             "differ from the unsharded K2/K3 call's")
+    round_ms = event_ms(lambda: sh.sharded_gp_round(
+        mesh_a, FR, pla, pra, eqa, copad, rca), 3, hold=False)
+    plain_ms = event_ms(lambda: (fk.gp_pair_evals(FR, la, ra, eqa, coa),
+                                 fk.gp_pair_bind(FR, la, ra, eqa, rca)), 3,
+                        hold=False)
+    print(f"phase 16 (a): one GKR round, B = {Ba} padded to {Bp} over "
+          f"{mesh_a.size} shards, s = 2^15: evaluations and bound l, r, eq "
+          f"== one unsharded K2 + K3 call; K2 and K3 launched once per "
+          f"shard; sharded round {round_ms:.3f} ms, unsharded "
+          f"{plain_ms:.3f} ms [{card}]", flush=True)
+    del la, ra, eqa, want_b, pla, pra, got_a
+    # (b) the HyperKZG batch commit at 2^20 (phase 11's polynomial, phase
+    # 3's SRS) on the mesh against the unsharded commit; then the window
+    # MSM (K6, K7) on 2^10 points against the host MSM
+    poly16 = cli.pcs_poly(1 << PCS_LOGN, dev)
+    want16 = pcs.batch_commit([poly16])[0].point
+    before = nat.launch_counts()
+    t0 = time.perf_counter()
+    got16 = pcs.batch_commit([poly16], mesh=mesh_a)[0].point
+    commit16_s = time.perf_counter() - t0
+    after = nat.launch_counts()
+    kb = {k: after[k] - before[k] for k in ("proj_cadd", "jac_add")}
+    if min(kb.values()) < 1:
+        fail(f"phase 16 (b): the sharded commit launched {kb}")
+    if got16 != want16:
+        fail("phase 16 (b): the sharded 2^20 HyperKZG commitment differs "
+             "from the unsharded one")
+    n10 = 1 << 10
+    jac10 = tuple(t[:, :n10] for t in pcs.pk.g1_jac)
+    rng16 = np.random.default_rng(16)
+    sc10 = [int(v) for v in rng16.integers(1, 1 << 63, n10)]
+    got10 = sh.sharded_msm(mesh_a, jac10, fd.ints_to_device(FR, sc10, dev))
+    want10 = g1_msm_host([p.to_affine() for p in cd.jacobian_to_host(*jac10)],
+                         sc10)
+    if got10 != want10:
+        fail("phase 16 (b): sharded_msm over 2^10 points differs from the "
+             "host MSM")
+    print(f"phase 16 (b): HyperKZG batch commit of the 2^20 pcs-bench "
+          f"polynomial on {mesh_a}: == the unsharded commitment "
+          f"({commit16_s:.3f} s; K5 and K6 launched {kb}); sharded_msm "
+          f"(window MSM: K6 scans, K6 fold, K7 Horner) over 2^10 points "
+          f"== the host MSM [{card}]", flush=True)
+    del poly16
+    # (c) the slice's path at full width: sha2-chain(13) on rv32i_vm() at
+    # T = 2^16, HyperKZG, through JoltVM.prove(mesh=), device FS on
+    vm16 = rv32i_vm()
+    steps16, io16, rows16 = trace_program(
+        sha2_chain_program(SHA2_ITERS), vm16, inputs=cli.SHA2_INPUT)
+    pcs16 = HyperKZG.setup(vm16.required_srs_len(io16, steps16, rows16),
+                           device=dev)
+    pre16 = vm16.preprocess(rows16, pcs16)
+    torch.cuda.synchronize()
+    before = nat.launch_counts()
+    t0 = time.perf_counter()
+    proof16, com16, tr16, acc16 = vm16.prove(io16, steps16, pre16,
+                                             mesh=mesh_c)
+    torch.cuda.synchronize()
+    prove16_s = time.perf_counter() - t0
+    after = nat.launch_counts()
+    c16 = {k: after[k] - before[k] for k in after}
+    missing = [k for k in MESH_KERNELS if c16[k] <= 0]
+    if missing:
+        fail(f"phase 16 (c): kernels of the mesh prove never launched: "
+             f"{missing}")
+    want8 = histories[f"sha2-chain({SHA2_ITERS})"]
+    if tr16.state_history != want8:
+        fail("phase 16 (c): the mesh prove's transcript differs from phase "
+             "8's")
+    out16 = bytes(io16.outputs)[:32]
+    if out16 != sha2_chain_expected(cli.SHA2_INPUT, SHA2_ITERS):
+        fail(f"phase 16 (c): the guest's output {out16.hex()} is not "
+             "hashlib's")
+    vm16.verify(pre16, proof16, com16, debug_transcript=tr16,
+                debug_accumulator=acc16)
+    ops16 = proof16.instruction_lookups.primary_sumcheck.openings
+    ops16.lookup_outputs_opening = ops16.lookup_outputs_opening + FElt(1, FR)
+    try:
+        vm16.verify(pre16, proof16, com16)
+    except VerificationError as e:
+        print(f"phase 16 (c): a proof with its lookup-outputs opening bumped "
+              f"by one is rejected ({e})", flush=True)
+    else:
+        fail("phase 16 (c): a mesh proof with an opening bumped verified")
+    mesh_counts = nat.launch_counts()
+    print(f"phase 16 (c): sha2-chain({SHA2_ITERS}) on rv32i_vm() T=2^16 "
+          f"HyperKZG through JoltVM.prove(mesh={mesh_c}) with device "
+          f"Fiat-Shamir: prove_s={prove16_s:.3f}; state_history == phase "
+          f"8's ({len(want8)} states); output == hashlib; verified; "
+          f"launches of the prove {json.dumps(c16)} [{card}]", flush=True)
+    print(f"phase 16: launches of the mesh path (a, b, c) "
+          f"{json.dumps(mesh_counts)}", flush=True)
+    del proof16, com16, tr16, acc16, pre16, pcs16
+    torch.cuda.empty_cache()
+
+    phase_done("phase 16")
     print(f"phase wall seconds {json.dumps(walls)}, total "
           f"{sum(walls.values()):.1f}", flush=True)
 
@@ -1871,7 +2037,8 @@ def main() -> None:
             "launches_quark_path": quark_counts[k.name],
             "launches_gp_commit_path": gpc_counts[k.name],
             "launches_evm_fixtures": evm_counts[k.name],
-            "launches_scaffold_prove": scaffold_counts.get(k.name, 0)}
+            "launches_scaffold_prove": scaffold_counts.get(k.name, 0),
+            "launches_mesh_path": mesh_counts[k.name]}
         for key in ("latency_bound_ms", "serial_latency_bound_ms",
                     "launch_ms"):
             if key in r:

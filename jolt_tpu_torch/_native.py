@@ -123,14 +123,18 @@ class CudaKernel:
         cuobjdump print: point_kernel<0> -> point_kernelILi0E."""
         return re.sub(r"<(\d+)>", r"ILi\1E", self.function)
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, device: torch.device) -> None:
+        """Call the C entry point with `args` under `device`, the device of
+        the tensors it is given: the runtime launches on its current
+        device, so a shard of a mesh on cuda:1 launches there."""
         if self._fn is None:
             lib = library(self.source)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        rc = self._fn(*args)
+        with torch.cuda.device(device):
+            rc = self._fn(*args)
         if rc != 0:
             msg = library(self.source).jt_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")

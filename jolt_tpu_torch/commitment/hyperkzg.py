@@ -75,19 +75,20 @@ class HyperKZG:
         return HyperKZGCommitment(kzg_commit(self.pk, poly))
 
     def batch_commit(self, polys: Sequence[torch.Tensor],
-                     batch_type: BatchType = BatchType.BIG
+                     batch_type: BatchType = BatchType.BIG, mesh=None
                      ) -> list[HyperKZGCommitment]:
         """Commitments to Montgomery Fr vectors [16, n].  GrandProduct
         batches take the mostly-ones shortcut (hyperkzg.rs:554-566 ->
         kzg.rs:223-256; jolt_tpu/commitment/hyperkzg.py:106-108): the sum
         of the SRS prefix plus the MSM of coeffs - 1, each polynomial
         apart; every other batch type shares one bitplane fold.  Both
-        give the same points."""
+        give the same points.  With `mesh`, the bitplane fold's point
+        axis is split over it (commitment/kzg.py kzg_commit_batch)."""
         if batch_type == BatchType.GRAND_PRODUCT:
             return [HyperKZGCommitment(kzg_commit_grand_product(self.pk, p))
                     for p in polys]
         return [HyperKZGCommitment(p)
-                for p in kzg_commit_batch(self.pk, list(polys))]
+                for p in kzg_commit_batch(self.pk, list(polys), mesh=mesh)]
 
     def combine_commitments(self, commitments: Sequence[HyperKZGCommitment],
                             coeffs: Sequence[FElt]) -> HyperKZGCommitment:

@@ -133,9 +133,11 @@ class HyraxScheme:
     def commit(self, poly: torch.Tensor, ratio: int = 1) -> HyraxCommitment:
         return self._commit([poly], ratio)[0]
 
-    def batch_commit(self, polys, batch_type: BatchType = BatchType.BIG):
+    def batch_commit(self, polys, batch_type: BatchType = BatchType.BIG,
+                     mesh=None):
         """Each vector committed at ratio 1, as jolt_tpu commits a batch;
         vectors of one length share one MSM."""
+        # unsharded on a mesh too, as jolt_tpu's Hyrax commits
         by_len: dict[int, list[int]] = {}
         for j, p in enumerate(polys):
             by_len.setdefault(p.shape[-1], []).append(j)

@@ -37,6 +37,7 @@ from ..curve.pairing import pairing_product_is_one
 from ..field import device as fd
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
+from ..parallel import sharding as sh
 from ..utils import caches
 
 FR = fr_spec()
@@ -239,10 +240,14 @@ def kzg_commit_grand_product(pk: KZGProverKey, coeffs_mont: torch.Tensor
     return total.to_affine()
 
 
-def kzg_commit_batch(pk: KZGProverKey, polys: list) -> list[G1Affine]:
+def kzg_commit_batch(pk: KZGProverKey, polys: list, mesh=None
+                     ) -> list[G1Affine]:
     """Batch commit: every polynomial's scalar bit-planes share one fold
-    over the same SRS bases."""
-    return cd.batch_msm_bitplane(pk.g1_jac, list(polys))
+    over the same SRS bases (its point axis split over `mesh`, if one is
+    given: parallel/sharding.py sharded_masked_fold)."""
+    fold = None if mesh is None else \
+        functools.partial(sh.sharded_masked_fold, mesh)
+    return cd.batch_msm_bitplane(pk.g1_jac, list(polys), fold)
 
 
 def _powers_device(spec: FieldSpec, u: torch.Tensor, n: int) -> torch.Tensor:

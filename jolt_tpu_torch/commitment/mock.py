@@ -43,8 +43,9 @@ class MockCommitmentScheme:
                                fd.device_to_ints(self.spec, poly).tolist()])
 
     def batch_commit(self, polys: Sequence[torch.Tensor],
-                     batch_type: BatchType = BatchType.BIG
+                     batch_type: BatchType = BatchType.BIG, mesh=None
                      ) -> list[MockCommitment]:
+        # no MSM: nothing for a mesh to split
         return [self.commit(p) for p in polys]
 
     def prove(self, poly: torch.Tensor, opening_point: Sequence[FElt],

@@ -113,7 +113,9 @@ class Zeromorph:
     def commit(self, poly: torch.Tensor) -> ZeromorphCommitment:
         return ZeromorphCommitment(kzg_commit(self.pk, poly))
 
-    def batch_commit(self, polys, batch_type: BatchType = BatchType.BIG):
+    def batch_commit(self, polys, batch_type: BatchType = BatchType.BIG,
+                     mesh=None):
+        # unsharded on a mesh too, as jolt_tpu's Zeromorph commits
         return [ZeromorphCommitment(p)
                 for p in kzg_commit_batch(self.pk, list(polys))]
 

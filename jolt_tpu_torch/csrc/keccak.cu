@@ -71,12 +71,11 @@
 namespace {
 
 constexpr int MAX_SEGS = 16;     // segments of one K8 launch (keccak_device.py)
-constexpr int MAX_DEGREE = 8;    // K9's largest round degree: rv32i_vm()'s
-                                 // primary sumcheck (max g degree 6, + 2)
-constexpr int MAX_PTS = MAX_DEGREE + 1;
 constexpr int K8_THREADS = 256;
 constexpr int K9_THREADS = 128;  // warp 0 hashes; warps 1-3 take the
-                                 // (d + 1)^2 <= 81 interpolation products
+                                 // (d + 1)^2 interpolation products
+constexpr int K9_STATIC_SMEM = 48 * 1024;  // dynamic shared memory a block
+                                           // takes without opting in
 constexpr int K8_SMEM_EVENTS = 512;  // events whose 8 words (payload or
                                      // digest) fit K8's shared memory;
                                      // more go to the caller's scratch
@@ -359,11 +358,20 @@ transcript_events_kernel(const long long* __restrict__ state_in,
     jt::store_limbs(chals + c, c_ls, digest_to_mont(dig + 8 * c, r2, F));
 }
 
+// K9's dynamic shared memory at degree d, in bytes: the (d + 1)^2
+// products and d + 1 coefficients (32-byte field elements), then the
+// d + 2 messages of 8 words (fs_device.py k9_smem_bytes mirrors it).
+__host__ __device__ constexpr long long k9_smem_bytes(long long degree) {
+  return ((degree + 1) * (degree + 1) + (degree + 1)) * 32 +
+         (degree + 2) * 32;
+}
+
 // evals: n_evals columns at limb stride e_ls (column j at +j): the round
 // polynomial at t = 0..d, or with the hint and n_evals = d, at t = 0, 2..d
 // (t = 1 is prev - e_0).  vinv: [16, npts^2] Montgomery limbs, row-major.
 // Outputs: comp [16, d] (the coefficients but the linear one), rj [16],
-// prev_out [16], state_out [9].
+// prev_out [16], state_out [9].  Any degree d >= 1: the buffers are sized
+// from d at launch (k9_smem_bytes), and warps 1-3 loop over the products.
 __global__ void __launch_bounds__(K9_THREADS, 1)
 fs_round_kernel(const int32_t* __restrict__ evals, long long e_ls,
                 int n_evals, const int32_t* __restrict__ prev,
@@ -373,12 +381,14 @@ fs_round_kernel(const int32_t* __restrict__ evals, long long e_ls,
                 int32_t* __restrict__ rj_out, int32_t* __restrict__ prev_out,
                 int degree, int use_hint, Labels labels, jt::Fe r2,
                 jt::Field F) {
-  __shared__ jt::Fe prod[MAX_PTS * MAX_PTS];
-  __shared__ jt::Fe co[MAX_PTS];
-  // the messages in order: UniPoly_begin, the d payloads, UniPoly_end
-  __shared__ uint32_t msg[MAX_DEGREE + 2][8];
-  __shared__ uint32_t dig[8];
+  extern __shared__ __align__(16) unsigned char k9_smem[];
   const int npts = degree + 1, tid = threadIdx.x;
+  jt::Fe* prod = reinterpret_cast<jt::Fe*>(k9_smem);       // [npts^2]
+  jt::Fe* co = prod + npts * npts;                          // [npts]
+  // the messages in order: UniPoly_begin, the d payloads, UniPoly_end,
+  // 8 words each
+  uint32_t* msg = reinterpret_cast<uint32_t*>(co + npts);   // [d + 2][8]
+  __shared__ uint32_t dig[8];
   KfLane T;
   KfState st;
   uint32_t n = 0;
@@ -387,14 +397,13 @@ fs_round_kernel(const int32_t* __restrict__ evals, long long e_ls,
     st = kf_load_state(state_in);
     n = (uint32_t)state_in[8];
     if (tid < 8) {
-      msg[0][tid] = labels.begin[tid];
-      msg[degree + 1][tid] = labels.end[tid];
+      msg[tid] = labels.begin[tid];
+      msg[8 * (degree + 1) + tid] = labels.end[tid];
     }
     __syncwarp();
   } else {
     // warps 1-3: product j = r npts + c is V^-1[r][c] e_c
-    const int j = tid - 32;
-    if (j < npts * npts) {
+    for (int j = tid - 32; j < npts * npts; j += K9_THREADS - 32) {
       const int c = j % npts;
       jt::Fe ev;
       if (use_hint && c == 1)
@@ -407,15 +416,15 @@ fs_round_kernel(const int32_t* __restrict__ evals, long long e_ls,
                          ev, F);
     }
     bar_sync(1, K9_THREADS - 32);
-    if (j < npts) {              // coefficient j: its row's sum
-      jt::Fe acc = prod[j * npts];
+    for (int j = tid - 32; j < npts; j += K9_THREADS - 32) {
+      jt::Fe acc = prod[j * npts];   // coefficient j: its row's sum
       for (int c = 1; c < npts; c++)
         acc = jt::fadd(acc, prod[j * npts + c], F);
       co[j] = acc;
       if (j != 1) {              // appended, in order, but the linear one
         const int a = j == 0 ? 0 : j - 1;
         jt::store_limbs(comp + a, degree, acc);
-        canonical_be(acc, F, msg[1 + a]);
+        canonical_be(acc, F, msg + 8 * (1 + a));
       }
     }
   }
@@ -424,7 +433,7 @@ fs_round_kernel(const int32_t* __restrict__ evals, long long e_ls,
   for (int e = 0; e < degree + 3; e++) {
     if (e == 1) __syncthreads();
     if (tid < 32) {
-      kf_absorb(st, n, e <= degree + 1 ? &msg[e][0] : nullptr);
+      kf_absorb(st, n, e <= degree + 1 ? msg + 8 * e : nullptr);
       keccak_f_warp(st, T);
       n++;
     }
@@ -488,9 +497,17 @@ extern "C" int jt_fs_round(const int32_t* evals, long long e_ls,
                            long long degree, long long use_hint,
                            const uint32_t* labels, const uint32_t* field,
                            void* stream) {
-  if (degree < 1 || degree > MAX_DEGREE ||
+  if (degree < 1 ||
       !(n_evals == degree + 1 || (use_hint && n_evals == degree)))
     return (int)cudaErrorInvalidValue;
+  const long long smem = k9_smem_bytes(degree);
+  if (smem > K9_STATIC_SMEM) {   // past 48 KiB (a degree above 37): opt in,
+                                 // up to the card's limit
+    cudaError_t e = cudaFuncSetAttribute(
+        fs_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   Labels lab;
   for (int k = 0; k < 8; k++) {
     lab.begin[k] = labels[k];
@@ -499,8 +516,21 @@ extern "C" int jt_fs_round(const int32_t* evals, long long e_ls,
   const jt::Field F = jt::make_field(field);
   jt::Fe r2;
   for (int k = 0; k < 8; k++) r2.w[k] = field[9 + k];
-  fs_round_kernel<<<1, K9_THREADS, 0, (cudaStream_t)stream>>>(
+  fs_round_kernel<<<1, K9_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
       evals, e_ls, (int)n_evals, prev, vinv, state_in, state_out, comp,
       rj_out, prev_out, (int)degree, (int)use_hint, lab, r2, F);
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory one K9 block may take on the current device
+// (the opt-in limit); fs_device.py refuses a degree whose k9_smem_bytes
+// exceed it, naming the degree.
+extern "C" int jt_fs_round_max_smem(long long* out) {
+  int dev = 0, v = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  *out = v;
+  return (int)e;
 }

@@ -99,13 +99,19 @@ def _horner_bits(sums: list[G1Jacobian]) -> G1Jacobian:
     return acc
 
 
-def batch_msm_bitplane(points_jac, scalars_mont: list) -> list[G1Affine]:
+def batch_msm_bitplane(points_jac, scalars_mont: list, fold=None
+                       ) -> list[G1Affine]:
     """MSMs of many scalar vectors over one base set (the batch commit).
 
     points_jac: (X, Y, Z) Montgomery Jacobian [16, N]; scalars_mont: list
     of Montgomery Fr tensors [16, n_j], n_j <= N.  Equal-length vectors are
     stacked; their canonical bits come from one REDC pass and one pull of
-    the per-limb maxima (a scalar vector of b bits costs b channels)."""
+    the per-limb maxima (a scalar vector of b bits costs b channels).
+
+    `fold` (default masked_fold) folds the masked points of one chunk of
+    channels to projective sums [16, K]; on a mesh, commitment/kzg.py
+    passes parallel/sharding.py's sharded_masked_fold."""
+    fold = fold or masked_fold
     px, py, pz = points_jac
     by_len: dict[int, list[int]] = {}
     for j, s in enumerate(scalars_mont):
@@ -143,7 +149,7 @@ def batch_msm_bitplane(points_jac, scalars_mont: list) -> list[G1Affine]:
             bits = torch.tensor([b for _, b in group], device=canon.device)
             sel = canon[bits // LIMB_BITS, slots, :]            # [K, n]
             masks = ((sel >> (bits % LIMB_BITS)[:, None]) & 1).bool()
-            folds.append(masked_fold(PX, PY, PZ, masks & live[None]))
+            folds.append(fold(PX, PY, PZ, masks & live[None]))
         # one pull for every chunk's channel sums
         sums_pts = proj_to_host_jac(*(torch.cat([f[i] for f in folds], dim=1)
                                       for i in range(3)))

@@ -168,7 +168,8 @@ def _launch_point(kernel: nat.CudaKernel, ts):
         return tuple(outs)
     kernel.launch(*[nat.ptr(t) for t in ts], *[nat.ptr(o) for o in outs], n,
                   *[t.stride(0) for t in ts], n,
-                  nat.words(FQ.words32()), nat.stream(outs[0]))
+                  nat.words(FQ.words32()), nat.stream(outs[0]),
+                  device=outs[0].device)
     return tuple(outs)
 
 

@@ -115,7 +115,7 @@ def hyperkzg_fixture(ell: int = 4, seed: int = 7, device=None) -> dict:
     }
 
 
-def spartan_fixture(n: int = 4, device=None) -> dict:
+def spartan_fixture(n: int = 4, device=None, mesh=None) -> dict:
     """A standalone uniform-Spartan proof over a real fibonacci(n) trace on
     rv32i_vm() (autogenerate_r1cs.rs / SpartanVerifier.t.sol).
 
@@ -123,7 +123,8 @@ def spartan_fixture(n: int = 4, device=None) -> dict:
     swapping vm/r1cs.py's `spartan_prove`, which the VM looks up there),
     then re-proves the Spartan part on a fresh `test_transcript`, so that
     the Solidity SpartanVerifier can replay it alone, and checks it with
-    the port's spartan_verify before returning it."""
+    the port's spartan_verify before returning it.  With `mesh`, both
+    proves run on it (parallel/sharding.py)."""
     from ..commitment.mock import MockCommitmentScheme
     from ..poly.opening_proof import (ProverOpeningAccumulator,
                                       VerifierOpeningAccumulator)
@@ -142,15 +143,16 @@ def spartan_fixture(n: int = 4, device=None) -> dict:
     captured = {}
     original = r1cs_mod.spartan_prove
 
-    def capture(builder, non_uniform, key, polys, T, acc, transcript, sp):
+    def capture(builder, non_uniform, key, polys, T, acc, transcript, sp,
+                mesh=None):
         captured.update(builder=builder, non_uniform=non_uniform, key=key,
                         polys=polys, T=T)
         return original(builder, non_uniform, key, polys, T, acc,
-                        transcript, sp)
+                        transcript, sp, mesh=mesh)
 
     r1cs_mod.spartan_prove = capture
     try:
-        vm.prove(io, steps, pre)
+        vm.prove(io, steps, pre, mesh=mesh)
     finally:
         r1cs_mod.spartan_prove = original
 
@@ -158,7 +160,7 @@ def spartan_fixture(n: int = 4, device=None) -> dict:
     acc = ProverOpeningAccumulator(spec)
     proof = original(captured["builder"], captured["non_uniform"],
                      captured["key"], captured["polys"], captured["T"],
-                     acc, t, spec)
+                     acc, t, spec, mesh=mesh)
 
     vt = Transcript(b"test_transcript")
     vt.compare_to(t)

@@ -55,10 +55,29 @@ def bshape(x: torch.Size, y: torch.Size) -> torch.Size:
     return torch.broadcast_shapes(x, y)
 
 
+CARRY_PARALLEL_MAX = 1 << 8    # lanes up to which a CPU carry or borrow
+#   takes whole-tensor passes (see carry; threshold from
+#   scripts/time_cpu_carry.py)
+
+
 def carry(t: torch.Tensor) -> torch.Tensor:
     """Propagate carries along the limb axis: nonnegative int64 column
     sums [k, ...] -> 16-bit limbs [k, ...] (the carry out of the top limb
-    is dropped, i.e. the result is mod 2^(16k))."""
+    is dropped, i.e. the result is mod 2^(16k)).
+
+    Two routes give the same limbs.  Limb by limb costs three ops a limb;
+    whole-tensor passes (each moves every limb's carry one limb up, until
+    none is left) cost a few ops a pass, fewer ops where carries are
+    short, but each pass reads every limb and asks the host whether to go
+    on.  On the CPU an op costs microseconds of overhead, so a tensor of
+    up to CARRY_PARALLEL_MAX lanes takes the passes; a CUDA tensor, whose
+    ops must not sync, always goes limb by limb."""
+    if t.device.type == "cpu" and t[0].numel() <= CARRY_PARALLEL_MAX:
+        return _carry_passes(t)
+    return _carry_limbs(t)
+
+
+def _carry_limbs(t: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(t)
     c = torch.zeros_like(t[0])
     for k in range(t.shape[0]):
@@ -68,16 +87,43 @@ def carry(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _carry_passes(t: torch.Tensor) -> torch.Tensor:
+    out = t
+    c = out >> W
+    while bool(c.any()):
+        out = out & MASK
+        out[1:] += c[:-1]
+        c = out >> W
+    return out
+
+
 def sub_borrow(a: torch.Tensor, b: torch.Tensor):
     """a - b limbwise over int64 16-bit limbs -> (diff limbs mod 2^256,
-    final borrow 0/1)."""
+    final borrow 0/1); the routes are carry()'s."""
     d = a - b                           # each limb in (-2^16, 2^16)
+    if d.device.type == "cpu" and d[0].numel() <= CARRY_PARALLEL_MAX:
+        return _borrow_passes(d)
+    return _borrow_limbs(d)
+
+
+def _borrow_limbs(d: torch.Tensor):
     out = torch.empty_like(d)
     borrow = torch.zeros_like(d[0])
     for k in range(d.shape[0]):
         v = d[k] - borrow
         out[k] = v & MASK
         borrow = -(v >> W)          # v in [-2^16, 2^16): v >> 16 is -1 or 0
+    return out, borrow
+
+
+def _borrow_passes(d: torch.Tensor):
+    out, borrow = d, torch.zeros_like(d[0])
+    b = -(out >> W)                     # 1 where a limb is < 0
+    while bool(b.any()):
+        out = out & MASK
+        out[1:] -= b[:-1]
+        borrow = borrow + b[-1]
+        b = -(out >> W)
     return out, borrow
 
 

@@ -95,7 +95,8 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor
     b, b_ls, b_es = _operand("mont_mul", b, shape)
     MONT_MUL.launch(nat.ptr(a), nat.ptr(b), nat.ptr(out), 1, n,
                     0, a_ls, a_es, 0, b_ls, b_es, 0, n,
-                    nat.words(spec.words32()), nat.stream(out))
+                    nat.words(spec.words32()), nat.stream(out),
+                    device=out.device)
     return out
 
 
@@ -134,7 +135,8 @@ def mont_mul_bl(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor
     MONT_MUL_BL.launch(nat.ptr(a), nat.ptr(b), nat.ptr(out), B, s,
                        a.stride(0), a.stride(1), 1,
                        b.stride(0), b.stride(1), 1, L * s, s,
-                       nat.words(spec.words32()), nat.stream(out))
+                       nat.words(spec.words32()), nat.stream(out),
+                       device=out.device)
     return out
 
 
@@ -266,7 +268,7 @@ def _gp_pair_evals_launch(spec: FieldSpec, l, r, eq, coeffs) -> torch.Tensor:
         nat.ptr(partials), nat.ptr(_gp_counter(l.device)), nat.ptr(out), B, h,
         groups, l.stride(0), l.stride(1), r.stride(0), r.stride(1),
         eq.stride(0), coeffs.stride(0), coeffs.stride(1), nblocks,
-        nat.words(spec.words32()), nat.stream(out))
+        nat.words(spec.words32()), nat.stream(out), device=out.device)
     return out
 
 
@@ -318,5 +320,5 @@ def gp_pair_bind(spec: FieldSpec, l: torch.Tensor, r: torch.Tensor,
         nat.ptr(l), nat.ptr(r), nat.ptr(eq), nat.ptr(nl), nat.ptr(nr),
         nat.ptr(neq), B, h, l.stride(0), l.stride(1), r.stride(0),
         r.stride(1), eq.stride(0), rc, rc_dev, nat.words(spec.words32()),
-        nat.stream(nl))
+        nat.stream(nl), device=nl.device)
     return nl, nr, neq

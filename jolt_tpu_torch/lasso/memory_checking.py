@@ -78,6 +78,7 @@ class MemoryCheckingProver:
     """
 
     spec: FieldSpec = fr_spec()
+    mesh = None  # parallel/sharding.py Mesh: split the GP batch axis
 
     def protocol_name(self) -> bytes:
         raise NotImplementedError
@@ -86,11 +87,13 @@ class MemoryCheckingProver:
         raise NotImplementedError
 
     def read_write_grand_product(self, polynomials, rw_leaves):
-        circuit = BatchedDenseGrandProduct.construct(rw_leaves, self.spec)
+        circuit = BatchedDenseGrandProduct.construct(rw_leaves, self.spec,
+                                                     mesh=self.mesh)
         return circuit, circuit.claims()
 
     def init_final_grand_product(self, polynomials, if_leaves):
-        circuit = BatchedDenseGrandProduct.construct(if_leaves, self.spec)
+        circuit = BatchedDenseGrandProduct.construct(if_leaves, self.spec,
+                                                     mesh=self.mesh)
         return circuit, circuit.claims()
 
     def prove_memory_checking(self, polynomials,

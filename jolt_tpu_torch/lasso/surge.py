@@ -23,6 +23,7 @@ from ..field import device as fd
 from ..field.generic import DevF
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
+from ..parallel.sharding import shard_sumcheck_polys
 from ..poly import mle
 from ..subprotocols.sumcheck import (SumcheckInstanceProof, VerificationError,
                                      prove_arbitrary)
@@ -233,13 +234,18 @@ def generate_witness(pre: SurgePreprocessing, x: np.ndarray, y: np.ndarray
     return polys, indices
 
 
-def surge_prove(pre: SurgePreprocessing, pcs, x: np.ndarray, y: np.ndarray
-                ) -> tuple[SurgeProof, Transcript, None]:
+def surge_prove(pre: SurgePreprocessing, pcs, x: np.ndarray, y: np.ndarray,
+                mesh=None) -> tuple[SurgeProof, Transcript, None]:
     """Prove N lookups (surge.rs:378-480).  Returns (proof, transcript,
     None): the transcript is the debug oracle for `surge_verify`; the
     opening accumulator stays unused under fork parity (surge.rs:440-447,
     memory_checking.rs:330-384), so None takes its place until the opening
-    proof is ported."""
+    proof is ported.
+
+    With `mesh` (parallel/sharding.py), the primary sumcheck's E and eq
+    MLEs are split on the hypercube axis, as jolt_tpu's are, and the
+    memory checking's grand products on their batch axis; the transcript
+    is the unsharded prover's."""
     spec = pre.spec
     C, M = pre.C, pre.M
     transcript = Transcript(b"Surge transcript")
@@ -266,14 +272,17 @@ def surge_prove(pre: SurgePreprocessing, pcs, x: np.ndarray, y: np.ndarray
     transcript.append_scalar(sumcheck_claim)
 
     degree = instr.g_poly_degree(C) + 1
+    if mesh is not None:
+        sc_polys = shard_sumcheck_polys(mesh, sc_polys)
     proof_primary, _r_z, final_evals = prove_arbitrary(
         num_rounds, sc_polys, comb, degree, transcript, spec)
     # Fork parity: E-poly opening accumulation disabled (surge.rs:440-447).
     primary = SurgePrimarySumcheck(proof_primary, num_rounds, sumcheck_claim,
                                    final_evals[:-1])
 
-    mc_proof = SurgeMemoryChecking(pre).prove_memory_checking(polys,
-                                                               transcript)
+    mc = SurgeMemoryChecking(pre)
+    mc.mesh = mesh
+    mc_proof = mc.prove_memory_checking(polys, transcript)
     proof = SurgeProof(commitments, final_commitments, primary, mc_proof, C, M)
     return proof, transcript, None
 

@@ -14,6 +14,10 @@ With host Fiat-Shamir each round pulls the active pairs' two evaluations
 and binds on the device; with device Fiat-Shamir (the default for CUDA
 tensors, grand_product._use_device_fs) the whole reduction runs on the
 device and the host replays it once (`_prove_reduction_device_fs`).
+On a mesh (`reduce_and_prove(..., mesh=)`), each opening's polynomial and
+eq are split on the hypercube axis for the reduction (cyclic: the rounds
+bind the top variable), as jolt_tpu's are; the joint polynomial is formed
+from the unsplit polynomials.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 from ..field import device as fd
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
+from ..parallel import sharding as sh
 from ..poly.mle import bind_top, eq_evaluate_host
 from ..poly.unipoly import CompressedUniPoly, UniPoly
 from ..subprotocols import fs_device as fsd
@@ -62,6 +67,22 @@ def _quadratic_evals(spec: FieldSpec, poly: torch.Tensor, eq: torch.Tensor
     e2 = fd.fadd(spec, e_hi, fd.fsub(spec, e_hi, e_lo))
     ev2 = fd.fsum(spec, fd.fmul(spec, p2, e2), axis=-1)
     return torch.stack([ev0, ev2], dim=1)
+
+
+def _pair_evals(spec: FieldSpec, poly, eq) -> torch.Tensor:
+    """_quadratic_evals, per shard and folded when the pair is sharded."""
+    return sh.round_evals(spec, lambda p, e: _quadratic_evals(spec, p, e),
+                          (poly, eq))
+
+
+def _bind_pair(spec: FieldSpec, poly, eq, r: torch.Tensor) -> tuple:
+    return sh.bind_hypercube(spec, (poly, eq), r, bind_top)
+
+
+def _final_claims(spec: FieldSpec, bound) -> list[FElt]:
+    return [FElt(int(v), spec) for v in fd.device_to_ints(
+        spec, torch.stack([sh.unshard(b)[..., 0] for b in bound],
+                          dim=1)).tolist()]
 
 
 @dataclass
@@ -102,7 +123,9 @@ class ProverOpeningAccumulator:
             list(opening_point), batched_claim))
 
     def prove_batch_opening_reduction(self, coeffs: list[FElt],
-                                      transcript: Transcript):
+                                      transcript: Transcript, mesh=None):
+        """The reduction sumcheck; with `mesh`, every polynomial and eq
+        split on its hypercube axis (those too small stay whole)."""
         spec = self.spec
         max_num_vars = max(len(o.opening_point) for o in self.openings)
         zero = FElt(0, spec)
@@ -111,20 +134,23 @@ class ProverOpeningAccumulator:
         for co, o in zip(coeffs, self.openings):
             diff = max_num_vars - len(o.opening_point)
             e = e + FElt(1 << diff, spec) * o.claim * co
+        bound = [sh.maybe_shard_hypercube(mesh, o.polynomial)
+                 for o in self.openings]
+        bound_eq = [sh.maybe_shard_hypercube(mesh, o.eq_poly)
+                    for o in self.openings]
         if _use_device_fs(self.openings[0].polynomial.device):
             return self._prove_reduction_device_fs(coeffs, e, max_num_vars,
-                                                   transcript)
+                                                   transcript, bound,
+                                                   bound_eq)
 
         r: list[FElt] = []
         compressed: list[CompressedUniPoly] = []
-        bound = [o.polynomial for o in self.openings]
-        bound_eq = [o.eq_poly for o in self.openings]
         for rnd in range(max_num_vars):
             remaining = max_num_vars - rnd
             active = [i for i, o in enumerate(self.openings)
                       if remaining <= len(o.opening_point)]
             pairs = fd.device_to_ints(spec, torch.stack(
-                [_quadratic_evals(spec, bound[i], bound_eq[i])
+                [_pair_evals(spec, bound[i], bound_eq[i])
                  for i in active], dim=1)).tolist()            # [P][2]
             ev0 = ev2 = zero
             for i, (e0, e2) in zip(active, pairs):
@@ -143,17 +169,16 @@ class ProverOpeningAccumulator:
             r.append(r_j)
             r_dev = fd.scalar_to_device(spec, r_j.v, bound[0].device)
             for i in active:
-                bound[i] = bind_top(spec, bound[i], r_dev)
-                bound_eq[i] = bind_top(spec, bound_eq[i], r_dev)
+                bound[i], bound_eq[i] = _bind_pair(spec, bound[i],
+                                                   bound_eq[i], r_dev)
             e = round_poly.evaluate(r_j)
             compressed.append(cpoly)
-
-        claims = [FElt(int(v), spec) for v in fd.device_to_ints(
-            spec, torch.stack([b[..., 0] for b in bound], dim=1)).tolist()]
-        return SumcheckInstanceProof(compressed), r, claims
+        return SumcheckInstanceProof(compressed), r, _final_claims(spec,
+                                                                   bound)
 
     def _prove_reduction_device_fs(self, coeffs: list[FElt], e: FElt,
-                                   max_num_vars: int, transcript: Transcript):
+                                   max_num_vars: int, transcript: Transcript,
+                                   bound: list, bound_eq: list):
         """The reduction sumcheck with the Fiat-Shamir chain on the device
         (jolt_tpu's opening_proof.py:254-380, shrinking instead of masked):
         each round's quadratic evaluations, batched with the coefficients
@@ -175,14 +200,12 @@ class ProverOpeningAccumulator:
         inacts_dev = fd.ints_to_device(spec, inacts, dev)       # [16, R]
         state = fsd.state_to_device(transcript, dev)
         prev = fd.scalar_to_device(spec, e.v, dev)
-        bound = [o.polynomial for o in self.openings]
-        bound_eq = [o.eq_poly for o in self.openings]
         comps = []
         for rnd in range(max_num_vars):
             remaining = max_num_vars - rnd
             active = [i for i, o in enumerate(self.openings)
                       if remaining <= len(o.opening_point)]
-            pairs = torch.stack([_quadratic_evals(spec, bound[i], bound_eq[i])
+            pairs = torch.stack([_pair_evals(spec, bound[i], bound_eq[i])
                                  for i in active], dim=1)      # [16, A, 2]
             ca = torch.cat([coeffs_dev[:, i:i + 1] for i in active], dim=1)
             evals = fd.fadd(spec, fd.fsum(spec, fd.fmul(
@@ -191,21 +214,22 @@ class ProverOpeningAccumulator:
             comp, rj, prev, state = fsd.fs_round(spec, evals, prev, state,
                                                  2, True)
             for i in active:
-                bound[i] = bind_top(spec, bound[i], rj)
-                bound_eq[i] = bind_top(spec, bound_eq[i], rj)
+                bound[i], bound_eq[i] = _bind_pair(spec, bound[i],
+                                                   bound_eq[i], rj)
             comps.append(comp)
         compressed, r = fsd.replay_and_check(
             spec, fd.device_to_ints(spec, torch.stack(comps, dim=1)).tolist(),
             transcript, state, CompressedUniPoly, "reduce_and_prove")
-        claims = [FElt(int(v), spec) for v in fd.device_to_ints(
-            spec, torch.stack([b[..., 0] for b in bound], dim=1)).tolist()]
-        return SumcheckInstanceProof(compressed), r, claims
+        return SumcheckInstanceProof(compressed), r, _final_claims(spec,
+                                                                   bound)
 
-    def reduce_and_prove(self, pcs, transcript: Transcript
+    def reduce_and_prove(self, pcs, transcript: Transcript, mesh=None
                          ) -> ReducedOpeningProof:
+        """The reduction sumcheck (split over `mesh`, if one is given),
+        then one opening of the joint polynomial."""
         rho_powers = transcript.challenge_scalar_powers(len(self.openings))
         sumcheck_proof, r_sumcheck, sumcheck_claims = \
-            self.prove_batch_opening_reduction(rho_powers, transcript)
+            self.prove_batch_opening_reduction(rho_powers, transcript, mesh)
         transcript.append_scalars(sumcheck_claims)
 
         gamma_powers = transcript.challenge_scalar_powers(len(self.openings))

@@ -24,6 +24,7 @@ the plain Keccak, so the CPU path never launches anything.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -37,8 +38,6 @@ from ..field.spec import FieldSpec
 from ..utils import keccak_device as kd
 
 L = fd.L
-MAX_DEGREE = 8        # K9's largest round degree (csrc/keccak.cu MAX_DEGREE):
-#   rv32i_vm()'s primary sumcheck, max_g_degree 6 + 2
 
 FS_ROUND = nat.CudaKernel(
     "fs_round", "keccak", "jt_fs_round",
@@ -141,9 +140,36 @@ def state_to_device(transcript, device) -> torch.Tensor:
                         dtype=torch.int64).to(device)
 
 
+def k9_smem_bytes(degree: int) -> int:
+    """K9's dynamic shared memory at `degree` (csrc/keccak.cu
+    k9_smem_bytes): (d + 1)^2 products and d + 1 coefficients of 32 bytes,
+    then d + 2 messages of 32 bytes."""
+    return ((degree + 1) ** 2 + (degree + 1)) * 32 + (degree + 2) * 32
+
+
+_MAX_SMEM: dict = {}
+
+
+def _max_smem(dev: torch.device) -> int:
+    """The shared memory one K9 block may take on `dev` (its opt-in
+    limit), read once per device."""
+    if dev not in _MAX_SMEM:
+        fn = nat.library("keccak").jt_fs_round_max_smem
+        fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_longlong(0)
+        with torch.cuda.device(dev):
+            rc = fn(ctypes.byref(out))
+        if rc:
+            raise RuntimeError(f"fs_round: CUDA error {rc} reading {dev}'s "
+                               "shared memory limit")
+        _MAX_SMEM[dev] = out.value
+    return _MAX_SMEM[dev]
+
+
 def _check_round(evals: torch.Tensor, degree: int, use_hint: bool) -> None:
-    if not 1 <= degree <= MAX_DEGREE:
-        raise ValueError(f"fs_round: degree {degree} (1..{MAX_DEGREE})")
+    if degree < 1:
+        raise ValueError(f"fs_round: degree {degree} (at least 1)")
     n = evals.shape[1] if evals.dim() == 2 else -1
     if evals.dim() != 2 or evals.shape[0] != L or not (
             n == degree + 1 or (use_hint and n == degree)):
@@ -182,6 +208,11 @@ def fs_round(spec: FieldSpec, evals: torch.Tensor, prev: torch.Tensor,
     if state.device != evals.device:
         raise ValueError("fs_round: tensors on several devices")
     dev = evals.device
+    if k9_smem_bytes(degree) > _max_smem(dev):
+        raise ValueError(
+            f"fs_round: degree {degree} needs {k9_smem_bytes(degree)} bytes "
+            f"of shared memory, more than a block takes on {dev} "
+            f"({_max_smem(dev)})")
     evals = evals.contiguous()
     prev = prev.reshape(L).contiguous()
     comp = torch.empty((L, degree), dtype=torch.int32, device=dev)
@@ -193,7 +224,7 @@ def fs_round(spec: FieldSpec, evals: torch.Tensor, prev: torch.Tensor,
         nat.ptr(_vinv_limbs(spec, degree + 1, dev)), nat.ptr(state),
         nat.ptr(state_out), nat.ptr(comp), nat.ptr(rj), nat.ptr(prev_out),
         degree, int(use_hint), _label_words(), kd.field_words(spec),
-        nat.stream(comp))
+        nat.stream(comp), device=comp.device)
     return comp, rj, prev_out, state_out
 
 

@@ -32,6 +32,15 @@ device and off on the CPU):
     device (K8), with one pull at the end and one host replay, which must
     reach the device chain's state byte for byte.
 Every mode gives the same transcript and proof.
+
+On a mesh (parallel/sharding.py; jolt_tpu's `mesh=`), the batch axis of
+every pair layer is split: the batch is zero-padded to a multiple of the
+mesh size, each shard builds and binds its circuits' trees (K4, K2, K3),
+the round evaluations fold mod p on the first device, and the pad rows'
+zero coefficients keep them out of every round; the claims and proof
+entries cover the real circuits alone.  The toggled grand product's
+toggle tensors are split on the hypercube instead.  The chained mode is
+off there, as jolt_tpu's `_chain_ok` has it.
 """
 from __future__ import annotations
 
@@ -45,7 +54,8 @@ from ..field import device as fd
 from ..field import kernels as fk
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
-from ..poly.mle import bitrev_indices, eq_evals_device_br
+from ..parallel import sharding as sh
+from ..poly.mle import bind_top, bitrev_indices, eq_evals_device_br
 from ..poly.unipoly import CompressedUniPoly, UniPoly
 from ..transcript import Transcript
 from ..utils.profiling import span
@@ -123,12 +133,18 @@ def _pair_tree_level(spec: FieldSpec, l: torch.Tensor, r: torch.Tensor):
 
 
 def _pair_cubic_evals(spec: FieldSpec, l, r, eq, coeffs) -> torch.Tensor:
-    """Cubic round-poly evaluations at t = 0, 2, 3 -> [16, 3] (K2)."""
+    """Cubic round-poly evaluations at t = 0, 2, 3 -> [16, 3] (K2; per
+    shard and folded on a mesh)."""
+    if sh.is_sharded(l):
+        return sh.gp_round_evals(l.mesh, spec, l, r, eq, coeffs)
     return fk.gp_pair_evals(spec, l, r, eq, coeffs)
 
 
 def _pair_bind(spec: FieldSpec, l, r, eq, r_chal):
-    """Bind the bottom variable on contiguous halves (K3)."""
+    """Bind the bottom variable on contiguous halves (K3; per shard on a
+    mesh)."""
+    if sh.is_sharded(l):
+        return sh.gp_round_bind(l.mesh, spec, l, r, eq, r_chal)
     return fk.gp_pair_bind(spec, l, r, eq, r_chal)
 
 
@@ -141,6 +157,24 @@ def _build_pair_tree(spec: FieldSpec, leaves: torch.Tensor) -> list:
     return layers
 
 
+def _build_sharded_tree(mesh, spec: FieldSpec, leaves: torch.Tensor) -> list:
+    """Interleaved leaves [16, B, n] -> pair layers bottom-up whose batch
+    axis is split over `mesh` (zero-padded to a multiple of its size):
+    each shard builds its block's trees on its device."""
+    trees = [_build_pair_tree(spec, part)
+             for part in sh.shard_leaves(mesh, leaves)]
+    real = leaves.shape[1]
+    return [tuple(sh.Sharded(mesh, tuple(t[k][i] for t in trees), 0,
+                             "block", real) for i in (0, 1))
+            for k in range(len(trees[0]))]
+
+
+def _pair_claims(spec: FieldSpec, top: tuple, real: int) -> list[FElt]:
+    """The real circuits' products from the top pair layer."""
+    lefts, rights = sh.batch_finals(top, real)
+    return _felts(spec, fd.fmul(spec, lefts, rights))
+
+
 def _felts(spec: FieldSpec, a: torch.Tensor) -> list[FElt]:
     return [FElt(int(v), spec) for v in fd.device_to_ints(spec, a).tolist()]
 
@@ -148,27 +182,39 @@ def _felts(spec: FieldSpec, a: torch.Tensor) -> list[FElt]:
 class BatchedDenseGrandProduct:
     """B independent grand products over 2^k leaves, proved jointly."""
 
-    def __init__(self, layers: list[tuple], spec: FieldSpec):
+    def __init__(self, layers: list[tuple], spec: FieldSpec,
+                 real_batch: int | None = None, mesh=None):
         self.layers = layers  # [(l, r)] pairs, layers[0] = leaves, bit-rev
         self.spec = spec
+        self.mesh = mesh
+        # the batch before a mesh's zero padding: the claims and proof
+        # entries cover the real circuits only
+        self.real_batch = layers[0][0].shape[0] if real_batch is None \
+            else real_batch
 
     @staticmethod
-    def construct(leaves: torch.Tensor, spec: FieldSpec | None = None
-                  ) -> "BatchedDenseGrandProduct":
+    def construct(leaves: torch.Tensor, spec: FieldSpec | None = None,
+                  mesh=None) -> "BatchedDenseGrandProduct":
+        """With `mesh`, the batch axis of every pair layer is split over
+        it (zero-padded to its size, never replicated)."""
         spec = spec or fr_spec()
-        return BatchedDenseGrandProduct(_build_pair_tree(spec, leaves), spec)
+        if mesh is None:
+            return BatchedDenseGrandProduct(_build_pair_tree(spec, leaves),
+                                            spec)
+        return BatchedDenseGrandProduct(
+            _build_sharded_tree(mesh, spec, leaves), spec, leaves.shape[1],
+            mesh)
 
     def num_layers(self) -> int:
         return len(self.layers)
 
     def claims(self) -> list[FElt]:
-        l, r = self.layers[-1]
-        return _felts(self.spec, fd.fmul(self.spec, l[..., 0].T, r[..., 0].T))
+        return _pair_claims(self.spec, self.layers[-1], self.real_batch)
 
     def prove(self, transcript: Transcript
               ) -> tuple[BatchedGrandProductProof, list[FElt]]:
         claims = self.claims()
-        if _use_chain(self.layers[0][0].device):
+        if self.mesh is None and _use_chain(self.layers[0][0].device):
             B = self.layers[0][0].shape[0]
             ops = sum((1 << j) * (B * 7 + 4)
                       for j in range(len(self.layers) - 1))
@@ -300,7 +346,8 @@ def _prove_dense_layers(spec: FieldSpec, layers: list[tuple],
         # roofline accounting: per round at per-side size s, the cubic
         # evals cost h*(B*5+3) field muls and the bind h*(B*2+1), h = s/2
         # halving each round (grand_product.rs:335-396 mul counts)
-        B, _, s = l.shape
+        B = len(claims)
+        s = (l.shards[0] if sh.is_sharded(l) else l).shape[-1]
         ops = sum((s >> (j + 1)) * (B * 7 + 4)
                   for j in range(len(r_grand_product)))
         with span("BatchedDenseGP::layer", ops=ops):
@@ -309,9 +356,14 @@ def _prove_dense_layers(spec: FieldSpec, layers: list[tuple],
             joint_claim = FElt(0, spec)
             for c, co in zip(claims, coeffs):
                 joint_claim = joint_claim + c * co
-            coeffs_dev = fd.ints_to_device(spec, [c.v for c in coeffs],
-                                           dev)
+            # a mesh's pad rows (past the B real circuits) get coefficient
+            # 0: every round evaluation is the unpadded prover's
+            n_pad = l.length - B if sh.is_sharded(l) else 0
+            coeffs_dev = fd.ints_to_device(
+                spec, [c.v for c in coeffs] + [0] * n_pad, dev)
             eq = eq_evals_device_br(spec, r_grand_product, dev)
+            if sh.is_sharded(l):
+                eq = sh.replicate(l.mesh, eq)
 
             r_sumcheck: list[FElt] = []
             compressed: list[CompressedUniPoly] = []
@@ -346,7 +398,7 @@ def _prove_dense_layers(spec: FieldSpec, layers: list[tuple],
                 previous_claim = round_poly.evaluate(r_j)
                 compressed.append(cpoly)
 
-            finals = _felts(spec, torch.cat([l[..., 0].T, r[..., 0].T],
+            finals = _felts(spec, torch.cat(sh.batch_finals((l, r), B),
                                             dim=1))
             left_claims, right_claims = finals[:B], finals[B:]
             for lc, rc in zip(left_claims, right_claims):
@@ -425,7 +477,12 @@ def _toggle_cubic_evals(spec: FieldSpec, flags: torch.Tensor,
 
 def _toggle_bind(spec: FieldSpec, flags, fingerprints, eq, r: torch.Tensor):
     """Bind the bottom variable of flags/fingerprints/eq: contiguous halves
-    (bit-reversed), new = lo + r * (hi - lo)."""
+    (bit-reversed), new = lo + r * (hi - lo): bind_top's pairs, shard by
+    shard on a mesh (cyclic layout)."""
+    if sh.is_sharded(flags):
+        return sh.bind_hypercube(spec, (flags, fingerprints, eq), r,
+                                 bind_top)
+
     def bb(t):
         h = t.shape[-1] // 2
         lo, hi = t[..., :h], t[..., h:]
@@ -442,25 +499,34 @@ class ToggledBatchedGrandProduct:
     the toggle rounds once the dense layers are proved (same transcript)."""
 
     def __init__(self, flag_bits: torch.Tensor, fingerprints: torch.Tensor,
-                 spec: FieldSpec | None = None):
+                 spec: FieldSpec | None = None, mesh=None):
+        """With `mesh`, the dense layers split on the batch axis and the
+        toggle tensors (flags, fingerprints) on the hypercube axis T: the
+        toggle rounds' work scales with T, not with the 2m batch."""
         self.spec = spec or fr_spec()
+        self.mesh = mesh
         bits = flag_bits.to(device=fingerprints.device, dtype=torch.bool)
         values = _toggle_values_bits(self.spec, bits, fingerprints)
         self._flag_bits = _bitrev_last(bits)
         self.fingerprints = _bitrev_last(fingerprints)        # [16, 2m, T]
         self.real_batch = values.shape[1]
-        self.layers = _build_pair_tree(self.spec, values)
+        if mesh is None:
+            self.layers = _build_pair_tree(self.spec, values)
+        else:
+            self.layers = _build_sharded_tree(mesh, self.spec, values)
+            self._flag_bits = sh.maybe_shard_hypercube(mesh, self._flag_bits)
+            self.fingerprints = sh.maybe_shard_hypercube(mesh,
+                                                         self.fingerprints)
 
     def claims(self) -> list[FElt]:
-        l, r = self.layers[-1]
-        return _felts(self.spec, fd.fmul(self.spec, l[..., 0].T, r[..., 0].T))
+        return _pair_claims(self.spec, self.layers[-1], self.real_batch)
 
     def prove(self, transcript: Transcript
               ) -> tuple[BatchedGrandProductProof, list[FElt]]:
         spec = self.spec
         claims = self.claims()
         dev = self.fingerprints.device
-        if _use_chain(dev):
+        if self.mesh is None and _use_chain(dev):
             return self._prove_chained(transcript, claims)
         layer_proofs, r_grand_product, claims = _prove_dense_layers(
             spec, self.layers, claims, [], transcript)
@@ -472,8 +538,18 @@ class ToggledBatchedGrandProduct:
             previous_claim = previous_claim + c * co
         coeffs_dev = fd.ints_to_device(spec, [c.v for c in coeffs], dev)
         eq = eq_evals_device_br(spec, r_grand_product, dev)
-        flags = _expand_flag_bits(spec, self._flag_bits)
         fps = self.fingerprints
+        if sh.is_sharded(fps):
+            flags = self._flag_bits.map(lambda b: _expand_flag_bits(spec, b))
+            eq = sh.shard_hypercube(self.mesh, eq)
+        else:
+            flags = _expand_flag_bits(spec, self._flag_bits)
+
+        def toggle_evals(flags, fps, eq):
+            return sh.round_evals(
+                spec, lambda f, p, e, c: _toggle_cubic_evals(spec, f, p, e, c),
+                (flags, fps, eq, coeffs_dev))
+
         r_sumcheck: list[FElt] = []
         compressed: list[CompressedUniPoly] = []
         if r_grand_product and _use_device_fs(dev):
@@ -481,7 +557,7 @@ class ToggledBatchedGrandProduct:
             prev = fd.scalar_to_device(spec, previous_claim.v, dev)
             comps = []
             for _ in range(len(r_grand_product)):
-                e023 = _toggle_cubic_evals(spec, flags, fps, eq, coeffs_dev)
+                e023 = toggle_evals(flags, fps, eq)
                 comp, rj, prev, state = fsd.fs_round(spec, e023, prev, state,
                                                      3, True)
                 flags, fps, eq = _toggle_bind(spec, flags, fps, eq, rj)
@@ -491,8 +567,7 @@ class ToggledBatchedGrandProduct:
                 .tolist(), transcript, state, CompressedUniPoly,
                 "ToggledGP::toggle")
         for _ in range(len(r_grand_product) - len(compressed)):
-            e0, e2, e3 = _felts(spec, _toggle_cubic_evals(spec, flags, fps,
-                                                          eq, coeffs_dev))
+            e0, e2, e3 = _felts(spec, toggle_evals(flags, fps, eq))
             round_poly = UniPoly.from_evals([e0, previous_claim - e0, e2, e3])
             cpoly = round_poly.compress()
             cpoly.append_to_transcript(transcript)
@@ -503,7 +578,8 @@ class ToggledBatchedGrandProduct:
             previous_claim = round_poly.evaluate(r_j)
             compressed.append(cpoly)
 
-        finals = _felts(spec, torch.cat([flags[..., 0], fps[..., 0]], dim=1))
+        finals = _felts(spec, torch.cat([sh.unshard(flags)[..., 0],
+                                         sh.unshard(fps)[..., 0]], dim=1))
         m = flags.shape[1]
         flag_vals, fp_vals = finals[:m], finals[m:]
         left_claims = [flag_vals[b // 2] for b in range(len(fp_vals))]

@@ -11,6 +11,12 @@ Fiat-Shamir (grand_product._use_device_fs: by default for CUDA tensors)
 the interpolation, the transcript and the challenge stay on the device
 (`_prove_rounds_device`, jolt_tpu's sumcheck.py:400-461 without its host
 tail), and the host replays the round polynomials once at the end.
+
+The polynomials may be split over a mesh on their hypercube axis
+(parallel/sharding.py `shard_sumcheck_polys`: cyclic for top binding,
+block for bottom binding): each round's evaluations are then per shard
+plus one modular fold on the mesh's first device, and the binds stay on
+the shards.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from ..field import device as fd
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
+from ..parallel import sharding as sh
 from ..poly.mle import bind_bot, bind_top
 from ..poly.unipoly import CompressedUniPoly, UniPoly
 from ..transcript import Transcript
@@ -86,6 +93,24 @@ def _round_evals(spec: FieldSpec, comb_func, degree: int,
     return torch.stack(evals, dim=1)
 
 
+def _evals(spec: FieldSpec, comb_func, degree: int, polys, bot: bool
+           ) -> torch.Tensor:
+    """_round_evals over polys that may be sharded: per shard, folded."""
+    return sh.round_evals(
+        spec, lambda *ps: _round_evals(spec, comb_func, degree, ps, bot),
+        polys)
+
+
+def _bind(spec: FieldSpec, polys, r: torch.Tensor, bot: bool) -> tuple:
+    return sh.bind_hypercube(spec, polys, r, bind_bot if bot else bind_top,
+                             "bot" if bot else "top")
+
+
+def _final_evals(spec: FieldSpec, polys) -> list:
+    return _felts(spec, torch.stack([sh.unshard(p)[..., 0] for p in polys],
+                                    dim=1))
+
+
 def _felts(spec: FieldSpec, a: torch.Tensor) -> list[FElt]:
     return [FElt(int(v), spec) for v in fd.device_to_ints(spec, a).tolist()]
 
@@ -100,14 +125,16 @@ def prove_arbitrary(num_rounds: int,
     """Generic sumcheck prover over device MLE limb tensors [16, n].
 
     comb_func(spec, params) -> limb tensor, where params is a tuple of
-    [16, half] limb tensors (one per polynomial).
+    [16, half] limb tensors (one per polynomial).  The polys may be
+    sharded on a mesh (cyclic layout).
     Returns (proof, challenge point r, final per-poly evaluations)."""
     spec = spec or fr_spec()
     polys = tuple(polys)
     # roofline accounting (approximate: comb_func's cost taken as the
     # (npolys-1)-mul product form): per round at half-size h, (degree+1)
     # comb evaluations of h*(npolys-1) muls plus the npolys*h bind muls
-    n_polys, n = len(polys), polys[0].shape[-1]
+    n_polys = len(polys)
+    n = polys[0].length if sh.is_sharded(polys[0]) else polys[0].shape[-1]
     ops = sum((n >> (j + 1)) * ((degree + 1) * (n_polys - 1) + n_polys)
               for j in range(num_rounds))
     r: list[FElt] = []
@@ -118,17 +145,17 @@ def prove_arbitrary(num_rounds: int,
                 num_rounds, polys, comb_func, degree, transcript, spec,
                 bot=False, claim=None)
         for _ in range(num_rounds - len(compressed)):
-            evals = _felts(spec, _round_evals(spec, comb_func, degree, polys))
+            evals = _felts(spec, _evals(spec, comb_func, degree, polys,
+                                        False))
             round_poly = UniPoly.from_evals(evals)
             cpoly = round_poly.compress()
             cpoly.append_to_transcript(transcript)
             r_j = transcript.challenge_scalar()
             r.append(r_j)
             rv = fd.scalar_to_device(spec, r_j.v, polys[0].device)
-            polys = tuple(bind_top(spec, p, rv) for p in polys)
+            polys = _bind(spec, polys, rv, False)
             compressed.append(cpoly)
-        final_evals = _felts(spec, torch.stack([p[..., 0] for p in polys],
-                                               dim=1))
+        final_evals = _final_evals(spec, polys)
     return SumcheckInstanceProof(compressed), r, final_evals
 
 
@@ -142,7 +169,7 @@ def prove_arbitrary_bot(num_rounds: int, polys: Sequence[torch.Tensor],
 
     With a `claim`, each round's evaluation at t = 1 is derived as
     claim - e0 (the reference's hint trick); values are identical for
-    honest provers."""
+    honest provers.  The polys may be sharded on a mesh (block layout)."""
     spec = spec or fr_spec()
     polys = tuple(polys)
     r: list[FElt] = []
@@ -153,8 +180,7 @@ def prove_arbitrary_bot(num_rounds: int, polys: Sequence[torch.Tensor],
             num_rounds, polys, comb_func, degree, transcript, spec, bot=True,
             claim=claim)
     for _ in range(num_rounds - len(compressed)):
-        evals = _felts(spec, _round_evals(spec, comb_func, degree, polys,
-                                          bot=True))
+        evals = _felts(spec, _evals(spec, comb_func, degree, polys, True))
         if previous_claim is not None:
             evals[1] = previous_claim - evals[0]
         round_poly = UniPoly.from_evals(evals)
@@ -163,11 +189,11 @@ def prove_arbitrary_bot(num_rounds: int, polys: Sequence[torch.Tensor],
         r_j = transcript.challenge_scalar()
         r.append(r_j)
         rv = fd.scalar_to_device(spec, r_j.v, polys[0].device)
-        polys = tuple(bind_bot(spec, p, rv) for p in polys)
+        polys = _bind(spec, polys, rv, True)
         if previous_claim is not None:
             previous_claim = round_poly.evaluate(r_j)
         compressed.append(cpoly)
-    final_evals = _felts(spec, torch.stack([p[..., 0] for p in polys], dim=1))
+    final_evals = _final_evals(spec, polys)
     return SumcheckInstanceProof(compressed), r, final_evals
 
 
@@ -188,13 +214,12 @@ def _prove_rounds_device(num_rounds, polys, comb_func, degree, transcript,
     state = fsd.state_to_device(transcript, dev)
     prev = fd.scalar_to_device(spec, claim.v, dev) if use_hint \
         else fd.zeros(spec, (), dev)
-    bind = bind_bot if bot else bind_top
     comps = []
     for _ in range(num_rounds):
-        evals = _round_evals(spec, comb_func, degree, polys, bot=bot)
+        evals = _evals(spec, comb_func, degree, polys, bot)
         comp, rj, prev, state = fsd.fs_round(spec, evals, prev, state,
                                              degree, use_hint)
-        polys = tuple(bind(spec, p, rj) for p in polys)
+        polys = _bind(spec, polys, rj, bot)
         comps.append(comp)
     compressed, r = fsd.replay_and_check(
         spec, fd.device_to_ints(spec, torch.stack(comps, dim=1)).tolist(),

@@ -270,5 +270,5 @@ def transcript_events(spec: FieldSpec, state: torch.Tensor,
         sc.stride(1) if scalars is not None else 0, nat.ptr(chals),
         max(n_chal, 1), None if scratch is None else nat.ptr(scratch),
         len(segments), kinds, counts, field_words(spec),
-        nat.stream(out_state))
+        nat.stream(out_state), device=out_state.device)
     return out_state, chals

@@ -28,6 +28,7 @@ from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
 from ..lasso.memory_checking import MemoryCheckingProof, MultisetHashes
 from ..lasso.surge import cumcount
+from ..parallel import sharding as sh
 from ..poly import mle
 from ..poly.unipoly import CompressedUniPoly, UniPoly
 from ..subprotocols import fs_device as fsd
@@ -301,8 +302,11 @@ def _felts(spec: FieldSpec, a: torch.Tensor) -> list[FElt]:
 
 def prove_instruction_lookups(pre: InstructionLookupsPreprocessing,
                               polys: InstructionLookupPolynomials,
-                              opening_accumulator, transcript: Transcript
-                              ) -> InstructionLookupsProof:
+                              opening_accumulator, transcript: Transcript,
+                              mesh=None) -> InstructionLookupsProof:
+    """With `mesh`, the primary sumcheck's tensors are split on the
+    hypercube (T) axis and the memory checking's grand products on their
+    batch axis (jolt_tpu's instruction_lookups.py:400-431, 534-554)."""
     spec, dev = pre.spec, pre.device
     transcript.append_protocol_name(PRIMARY_PROTOCOL)
 
@@ -311,6 +315,16 @@ def prove_instruction_lookups(pre: InstructionLookupsPreprocessing,
     r_eq = transcript.challenge_vector(num_rounds)
     eq = mle.eq_evals_device(spec, r_eq, dev)
     out, fl, e = polys.lookup_outputs, polys.instruction_flags, polys.E_polys
+    if mesh is not None:
+        eq, out, fl, e = (sh.maybe_shard_hypercube(mesh, t)
+                          for t in (eq, out, fl, e))
+
+    def round_evals(eq, out, fl, e):
+        return sh.round_evals(
+            spec, lambda *ts: _primary_round_evals(pre, *ts), (eq, out, fl, e))
+
+    def bind(ts, r):
+        return sh.bind_hypercube(spec, ts, r, mle.bind_top)
 
     r_primary: list[FElt] = []
     compressed: list[CompressedUniPoly] = []
@@ -321,27 +335,27 @@ def prove_instruction_lookups(pre: InstructionLookupsPreprocessing,
         prev = fd.zeros(spec, (), dev)
         comps = []
         for _ in range(num_rounds):
-            evals = _primary_round_evals(pre, eq, out, fl, e)
+            evals = round_evals(eq, out, fl, e)
             comp, rj, prev, state = fsd.fs_round(
                 spec, evals, prev, state, pre.sumcheck_degree, False)
-            eq, out, fl, e = (mle.bind_top(spec, t, rj)
-                              for t in (eq, out, fl, e))
+            eq, out, fl, e = bind((eq, out, fl, e), rj)
             comps.append(comp)
         compressed, r_primary = fsd.replay_and_check(
             spec, fd.device_to_ints(spec, torch.stack(comps, dim=1)).tolist(),
             transcript, state, CompressedUniPoly,
             "InstructionLookups::primary_sumcheck")
     for _ in range(num_rounds - len(compressed)):
-        evals = _felts(spec, _primary_round_evals(pre, eq, out, fl, e))
+        evals = _felts(spec, round_evals(eq, out, fl, e))
         round_poly = UniPoly.from_evals(evals)
         cpoly = round_poly.compress()
         cpoly.append_to_transcript(transcript)
         r_j = transcript.challenge_scalar()
         r_primary.append(r_j)
         rv = fd.scalar_to_device(spec, r_j.v, dev)
-        eq, out, fl, e = (mle.bind_top(spec, t, rv) for t in (eq, out, fl, e))
+        eq, out, fl, e = bind((eq, out, fl, e), rv)
         compressed.append(cpoly)
 
+    e, fl, out = (sh.unshard(t) for t in (e, fl, out))
     finals = _felts(spec, torch.cat([e[..., 0], fl[..., 0], out[..., :1]],
                                     dim=1))
     m = pre.num_memories
@@ -358,11 +372,11 @@ def prove_instruction_lookups(pre: InstructionLookupsPreprocessing,
 
     primary = PrimarySumcheck(SumcheckInstanceProof(compressed), num_rounds,
                               openings)
-    mc_proof = _prove_memory_checking(pre, polys, transcript)
+    mc_proof = _prove_memory_checking(pre, polys, transcript, mesh)
     return InstructionLookupsProof(primary, mc_proof)
 
 
-def _prove_memory_checking(pre, polys, transcript: Transcript
+def _prove_memory_checking(pre, polys, transcript: Transcript, mesh=None
                            ) -> MemoryCheckingProof:
     spec, dev = pre.spec, pre.device
     gamma = transcript.challenge_scalar()
@@ -378,8 +392,10 @@ def _prove_memory_checking(pre, polys, transcript: Transcript
     if_leaves = _il_if_leaves(spec, pre.subtable_to_memory_indices,
                               pre.subtable_dev, polys.final_cts, identity, g, t)
 
-    rw_circuit = ToggledBatchedGrandProduct(polys.memory_flags, rw_leaves, spec)
-    if_circuit = BatchedDenseGrandProduct.construct(if_leaves, spec)
+    rw_circuit = ToggledBatchedGrandProduct(polys.memory_flags, rw_leaves, spec,
+                                            mesh=mesh)
+    if_circuit = BatchedDenseGrandProduct.construct(if_leaves, spec,
+                                                    mesh=mesh)
     del rw_leaves, if_leaves   # the pair trees hold their own copies
     hashes = _uninterleave_hashes(pre, rw_circuit.claims(), if_circuit.claims())
     _check_multiset_equality(pre, hashes)

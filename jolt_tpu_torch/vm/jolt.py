@@ -18,6 +18,7 @@ from .._device import resolve_device
 from ..field import device as fd
 from ..field.spec import FieldSpec, fr_spec
 from ..instructions.utils import chunk_operand_vec
+from ..parallel.sharding import check_first
 from ..poly.opening_proof import (ProverOpeningAccumulator, ReducedOpeningProof,
                                   VerifierOpeningAccumulator)
 from ..transcript import Transcript
@@ -166,10 +167,21 @@ class JoltVM:
 
     # -- prove --------------------------------------------------------------
     def prove(self, program_io: JoltDevice, trace: list[JoltTraceStep],
-              pre: JoltPreprocessing):
+              pre: JoltPreprocessing, mesh=None):
         """Returns (proof, commitments, transcript, opening accumulator);
-        the last two are the verifier's debug oracles."""
+        the last two are the verifier's debug oracles.
+
+        With `mesh` (parallel/sharding.py: `make_mesh`), the whole prover
+        runs multi-device, as jolt_tpu's prove(mesh=) does: the commit
+        MSMs split the point axis (HyperKZG's; Hyrax and Zeromorph commit
+        unsharded, as jolt_tpu's), the grand products the batch axis, and
+        every sumcheck (primary lookups, outputs, Spartan outer and inner,
+        the opening reduction) the hypercube axis.  The mesh's first device must be the one the
+        preprocessing lives on.  The transcript bytes are the unsharded
+        prover's."""
         spec, dev = self.spec, pre.device
+        if mesh is not None:
+            check_first(mesh, dev)
         trace_length = len(trace)
         trace = pad_trace(trace)
         T = len(trace)
@@ -246,8 +258,8 @@ class JoltVM:
         lay.check_rw(rw_polys)
         lay.check_if(if_polys)
         with span("JoltPolynomials::commit"):
-            rw_commitments = pcs.batch_commit(rw_polys)
-            if_commitments = pcs.batch_commit(if_polys)
+            rw_commitments = pcs.batch_commit(rw_polys, mesh=mesh)
+            if_commitments = pcs.batch_commit(if_polys, mesh=mesh)
         del rw_polys, if_polys
 
         transcript.append_scalar(key.vk_digest)
@@ -258,26 +270,29 @@ class JoltVM:
 
         # --- component proofs -----------------------------------------------
         with span("BytecodeProof::prove_memory_checking"):
-            bytecode_proof = bc.BytecodeMemoryChecking(
-                pre.bytecode).prove_memory_checking(bc_polys, transcript)
+            bc_mc = bc.BytecodeMemoryChecking(pre.bytecode)
+            bc_mc.mesh = mesh
+            bytecode_proof = bc_mc.prove_memory_checking(bc_polys, transcript)
         with span("InstructionLookupsProof::prove"):
             instruction_proof = il.prove_instruction_lookups(
-                pre.instruction_lookups, il_polys, acc, transcript)
+                pre.instruction_lookups, il_polys, acc, transcript, mesh=mesh)
         with span("ReadWriteMemoryProof::prove"):
             mc_proof = rwm.prove_memory_checking(rwm_polys, bc_polys,
-                                                 transcript, spec)
+                                                 transcript, spec, mesh=mesh)
             output_proof = rwm.prove_outputs(rwm_polys, program_io, acc,
-                                             transcript, spec)
+                                             transcript, spec, mesh=mesh)
             ts_proof = ts.prove_timestamp_validity(ts_polys, rwm_polys, acc,
-                                                   transcript, spec)
+                                                   transcript, spec,
+                                                   mesh=mesh)
             memory_proof = rwm.ReadWriteMemoryProof(mc_proof, output_proof,
                                                     ts_proof)
         with span("UniformSpartanProof::prove"):
             spartan_proof = r1cs_mod.spartan_prove(builder, non_uniform, key,
                                                    flattened, T, acc,
-                                                   transcript, spec)
+                                                   transcript, spec,
+                                                   mesh=mesh)
         with span("reduce_and_prove"):
-            opening_proof = acc.reduce_and_prove(pcs, transcript)
+            opening_proof = acc.reduce_and_prove(pcs, transcript, mesh=mesh)
 
         proof = JoltProof(trace_length, program_io, bytecode_proof,
                           memory_proof, instruction_proof, spartan_proof,

@@ -25,6 +25,7 @@ import torch
 from ..field import device as fd
 from ..field.host import FElt
 from ..field.spec import FieldSpec
+from ..parallel.sharding import shard_sumcheck_polys
 from ..poly import mle
 from ..subprotocols.sumcheck import (SumcheckInstanceProof, VerificationError,
                                      prove_arbitrary, prove_arbitrary_bot)
@@ -779,7 +780,11 @@ def spartan_prove(builder: R1CSBuilder,
                   non_uniform: list[OffsetEqConstraint],
                   key: UniformSpartanKey, polys: list[torch.Tensor], T: int,
                   opening_accumulator, transcript: Transcript,
-                  spec: FieldSpec) -> UniformSpartanProof:
+                  spec: FieldSpec, mesh=None) -> UniformSpartanProof:
+    """With `mesh`, the outer sumcheck's tensors split on the row axis
+    (block layout: the outer sumcheck binds the bottom variable) and the
+    inner sumcheck's on the column axis (cyclic: it binds the top one),
+    as jolt_tpu's vm/r1cs.py:792-832 shards them."""
     dev = polys[0].device
     num_rounds_x = log2_strict(key.num_rows_total())
     num_rounds_y = log2_strict(key.num_cols_total())
@@ -788,9 +793,13 @@ def spartan_prove(builder: R1CSBuilder,
     eq_tau = mle.eq_evals_device(spec, tau, dev)
     az, bz, cz = compute_spartan_matrices(builder, non_uniform, polys, T,
                                           spec)
+    outer_polys = (eq_tau, az, bz, cz)
+    if mesh is not None:
+        outer_polys = shard_sumcheck_polys(mesh, outer_polys, order="bot")
     outer_proof, r_outer, outer_evals = prove_arbitrary_bot(
-        num_rounds_x, (eq_tau, az, bz, cz), _outer_comb, 3, transcript, spec,
+        num_rounds_x, outer_polys, _outer_comb, 3, transcript, spec,
         claim=FElt(0, spec))
+    del outer_polys
     del eq_tau, az, bz, cz
     r_outer = list(reversed(r_outer))
     claim_az, claim_bz, claim_cz = outer_evals[1], outer_evals[2], outer_evals[3]
@@ -809,9 +818,12 @@ def spartan_prove(builder: R1CSBuilder,
         fd.ones(spec, (1,), dev),
         fd.zeros(spec, (half - 1,), dev)], dim=1)
 
+    inner_polys = (poly_abc, z)
+    if mesh is not None:
+        inner_polys = shard_sumcheck_polys(mesh, inner_polys)
     inner_proof, r_inner, _ = prove_arbitrary(
-        num_rounds_y, (poly_abc, z), _inner_comb, 2, transcript, spec)
-    del poly_abc, z
+        num_rounds_y, inner_polys, _inner_comb, 2, transcript, spec)
+    del poly_abc, z, inner_polys
 
     n_prefix = log2_strict(next_power_of_two(key.num_vars)) + 1
     r_col_step = r_inner[n_prefix:]

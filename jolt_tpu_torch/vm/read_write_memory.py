@@ -25,6 +25,7 @@ from ..lasso.memory_checking import MemoryCheckingProof, MultisetHashes
 from ..poly import mle
 from ..subprotocols.grand_product import (BatchedDenseGrandProduct,
                                           verify_grand_product)
+from ..parallel.sharding import shard_sumcheck_polys
 from ..subprotocols.sumcheck import (SumcheckInstanceProof, VerificationError,
                                      prove_arbitrary)
 from ..transcript import Transcript
@@ -266,7 +267,8 @@ def _identity_dev(spec, n, device):
 
 def prove_memory_checking(polys: ReadWriteMemoryPolynomials,
                           bytecode_polys, transcript: Transcript,
-                          spec: FieldSpec) -> MemoryCheckingProof:
+                          spec: FieldSpec, mesh=None) -> MemoryCheckingProof:
+    """With `mesh`, both grand products split their batch axis over it."""
     gamma = transcript.challenge_scalar()
     tau = transcript.challenge_scalar()
     transcript.append_protocol_name(MEMCHECK_PROTOCOL)
@@ -283,8 +285,8 @@ def prove_memory_checking(polys: ReadWriteMemoryPolynomials,
                          _identity_dev(spec, polys.v_final.shape[-1], dev),
                          g, t)
 
-    rw_circuit = BatchedDenseGrandProduct.construct(rw, spec)
-    if_circuit = BatchedDenseGrandProduct.construct(inf, spec)
+    rw_circuit = BatchedDenseGrandProduct.construct(rw, spec, mesh=mesh)
+    if_circuit = BatchedDenseGrandProduct.construct(inf, spec, mesh=mesh)
     del rw, inf                # the pair trees hold their own copies
     rw_hashes = rw_circuit.claims()
     if_hashes = if_circuit.claims()
@@ -351,7 +353,9 @@ def _io_values(program_io: JoltDevice, size: int) -> list[int]:
 
 def prove_outputs(polys: ReadWriteMemoryPolynomials, program_io: JoltDevice,
                   opening_accumulator, transcript: Transcript,
-                  spec: FieldSpec) -> OutputSumcheckProof:
+                  spec: FieldSpec, mesh=None) -> OutputSumcheckProof:
+    """With `mesh`, the output sumcheck's tensors split on the hypercube
+    axis (jolt_tpu's read_write_memory.py:381-383)."""
     layout = program_io.memory_layout
     dev = polys.v_final.device
     memory_size = polys.v_final.shape[-1]
@@ -367,6 +371,8 @@ def prove_outputs(polys: ReadWriteMemoryPolynomials, program_io: JoltDevice,
 
     to_dev = lambda arr: fd.u64_to_mont_device(spec, arr, dev)  # noqa: E731
     sc_polys = (eq, to_dev(io_witness_range), polys.v_final, to_dev(v_io))
+    if mesh is not None:
+        sc_polys = shard_sumcheck_polys(mesh, sc_polys)
     proof, r_sumcheck, openings = prove_arbitrary(
         num_rounds, sc_polys, _output_comb, 3, transcript, spec)
 

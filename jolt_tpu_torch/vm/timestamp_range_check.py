@@ -125,8 +125,9 @@ def _check_multiset(h: MultisetHashes):
 
 def prove_timestamp_validity(ts_polys: TimestampRangeCheckPolynomials,
                              rwm_polys, opening_accumulator,
-                             transcript: Transcript, spec: FieldSpec
-                             ) -> TimestampValidityProof:
+                             transcript: Transcript, spec: FieldSpec,
+                             mesh=None) -> TimestampValidityProof:
+    """With `mesh`, the grand product splits its batch axis over it."""
     gamma = transcript.challenge_scalar()
     tau = transcript.challenge_scalar()
     transcript.append_protocol_name(PROTOCOL_NAME)
@@ -137,7 +138,7 @@ def prove_timestamp_validity(ts_polys: TimestampRangeCheckPolynomials,
     leaves = _ts_leaves(spec, ts_polys, rwm_polys.t_read, identity,
                         fd.scalar_to_device(spec, gamma.v, dev),
                         fd.scalar_to_device(spec, tau.v, dev))
-    circuit = BatchedDenseGrandProduct.construct(leaves, spec)
+    circuit = BatchedDenseGrandProduct.construct(leaves, spec, mesh=mesh)
     del leaves                 # the pair tree holds its own copies
     hashes_flat = circuit.claims()
     rw = hashes_flat[: 4 * NUM_CH]

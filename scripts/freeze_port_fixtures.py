@@ -65,6 +65,15 @@ jolt_tpu on the CPU and written to `fixtures/port/<case>.npz`:
                    chained dense grand product (B = 2, 8 leaves) and the
                    chained toggled one (2 flag rows, T = 8): transcripts,
                    challenges, claims, and their span rows
+    mesh           jolt_tpu's side of tests/test_torch_sharding.py, on the
+                   inputs of `mesh_inputs`, unsharded (the sharded port
+                   must reproduce it): prove_arbitrary and
+                   prove_arbitrary_bot (n = 128, degree 3), the dense
+                   grand product (B = 11, 16 leaves) and Surge XOR (C = 2,
+                   M = 2^4, 16 lookups): transcripts, challenges, claims
+    fs_degree      jolt_tpu's prove_arbitrary at degree 9 and 12 (the
+                   product of 9 and 12 MLEs over 2^3 points), for
+                   tests/test_torch_fs_device.py's degree cases
 
 The cases, their programs and the array format are in
 jolt_tpu_torch/vm/fixtures.py, which the port's tests and chip_smoke.py
@@ -403,6 +412,93 @@ def fs_device_arrays() -> dict:
     return out
 
 
+def mesh_inputs() -> dict:
+    """The numpy-seeded inputs of tests/test_torch_sharding.py's provers
+    (canonical field ints)."""
+    rng = np.random.default_rng(41)
+    return {"sc_top": field_ints(rng, 3, 128),
+            "sc_bot": field_ints(rng, 3, 128),
+            "gp_leaves": field_ints(rng, 11, 16),
+            "surge_x": rng.integers(0, 16, size=16, dtype=np.uint64),
+            "surge_y": rng.integers(0, 16, size=16, dtype=np.uint64)}
+
+
+def _sumcheck_record(name: str, t, r, finals) -> dict:
+    from jolt_tpu_torch.commitment.fixtures import states
+    from jolt_tpu_torch.convert import scalars_to_numpy
+    return {f"{name}_states": states(t), f"{name}_r": scalars_to_numpy(r),
+            f"{name}_finals": scalars_to_numpy(finals)}
+
+
+def mesh_arrays() -> dict:
+    """jolt_tpu's outputs on `mesh_inputs`, host Fiat-Shamir."""
+    from jolt_tpu.commitment import MockCommitmentScheme
+    from jolt_tpu.field import fr_spec
+    from jolt_tpu.field import device as jfd
+    from jolt_tpu.instructions import XorInstruction
+    from jolt_tpu.lasso import surge
+    from jolt_tpu.subprotocols import grand_product as jgp
+    from jolt_tpu.subprotocols import sumcheck as jsc
+    from jolt_tpu.transcript import Transcript
+    from jolt_tpu_torch.commitment.fixtures import states
+    from jolt_tpu_torch.convert import scalars_to_numpy
+
+    spec = fr_spec()
+    dev = lambda vals: jfd.ints_to_device(spec, vals.tolist())
+    inp = mesh_inputs()
+    out = {}
+    with env({"JOLT_TPU_DEVICE_FS": "0", "JOLT_TPU_CHAIN": "0"}):
+        for name, fn in (("sc_top", jsc.prove_arbitrary),
+                         ("sc_bot", jsc.prove_arbitrary_bot)):
+            t = Transcript(name.encode())
+            _, r, finals = fn(7, [dev(row) for row in inp[name]],
+                              jsc.comb_product, 3, t, spec)
+            out.update(_sumcheck_record(name, t, r, finals))
+        gp = jgp.BatchedDenseGrandProduct.construct(dev(inp["gp_leaves"]),
+                                                    spec)
+        t = Transcript(b"gp")
+        out["gp_claims"] = scalars_to_numpy(gp.claims())
+        proof, r = gp.prove(t)
+        out.update({"gp_states": states(t), "gp_r": scalars_to_numpy(r),
+                    "gp_left": np.concatenate(
+                        [scalars_to_numpy(lp.left_claims)
+                         for lp in proof.layers])})
+        pre = surge.SurgePreprocessing(XorInstruction, 2, 16, spec)
+        _, t, _ = surge.surge_prove(pre, MockCommitmentScheme(spec),
+                                    inp["surge_x"], inp["surge_y"])
+        out["surge_states"] = states(t)
+    return out
+
+
+FS_DEGREES = (9, 12)
+
+
+def fs_degree_inputs() -> dict:
+    """tests/test_torch_fs_device.py's degree-9 and degree-12 sumchecks:
+    the product of `degree` MLEs over 2^3 points (canonical ints)."""
+    rng = np.random.default_rng(43)
+    return {f"deg{d}": field_ints(rng, d, 8) for d in FS_DEGREES}
+
+
+def fs_degree_arrays() -> dict:
+    """jolt_tpu's prove_arbitrary on `fs_degree_inputs` (3 rounds each)."""
+    from jolt_tpu.field import fr_spec
+    from jolt_tpu.field import device as jfd
+    from jolt_tpu.subprotocols import sumcheck as jsc
+    from jolt_tpu.transcript import Transcript
+
+    spec = fr_spec()
+    out = {}
+    with env({"JOLT_TPU_DEVICE_FS": "0", "JOLT_TPU_CHAIN": "0"}):
+        for name, rows in fs_degree_inputs().items():
+            t = Transcript(name.encode())
+            _, r, finals = jsc.prove_arbitrary(
+                3, [jfd.ints_to_device(spec, row.tolist()) for row in rows],
+                jsc.comb_product, rows.shape[0], t, spec)
+            out.update(_sumcheck_record(name, t, r, finals))
+    return out
+
+
 def prove_pcs_case(case: str) -> dict:
     """jolt_tpu's openings of `zeromorph_l6` or `hyrax_l7`, each verified
     by jolt_tpu, as the arrays of jolt_tpu_torch/commitment/fixtures.py."""
@@ -532,7 +628,8 @@ def main(argv=None) -> None:
                                             "quark_hyperkzg", "quark_mock",
                                             "fib3_spans",
                                             "fib3_proof_bytes",
-                                            "fib3_spans_chain", "fs_device"]
+                                            "fib3_spans_chain", "fs_device",
+                                            "mesh", "fs_degree"]
     chosen = list(argv if argv is not None else sys.argv[1:]) or names
     for name in chosen:
         if name not in names:
@@ -563,6 +660,10 @@ def main(argv=None) -> None:
             arrays = jolt_parts_arrays()
         elif name == "fs_device":
             arrays = fs_device_arrays()
+        elif name == "mesh":
+            arrays = mesh_arrays()
+        elif name == "fs_degree":
+            arrays = fs_degree_arrays()
         elif name == "quark_hyperkzg":
             arrays = prove_quark_case()
         elif name.startswith("fib3_"):

@@ -134,3 +134,56 @@ def test_host_conversions_round_trip():
     _same(jfd.ints_to_device(jspec, vals), dev)
     assert [int(v) for v in tfd.device_to_ints(tspec, dev)] == vals
     assert tfd.to_int(tspec, tfd.scalar_to_device(tspec, 99, "cpu")) == 99
+
+
+def _carry_inputs(kind: str, n: int, rng):
+    """(column sums [33, n] for carry, a - b limbs [16, n] for borrow):
+    random products' schoolbook columns and random limbs, or carries and
+    borrows that run through every limb, or the two mixed lane by lane."""
+    a = rng.integers(0, 1 << 16, (16, n))
+    b = rng.integers(0, 1 << 16, (16, n))
+    cols = np.zeros((33, n), np.int64)
+    for i in range(16):
+        cols[i:i + 16] += a[i] * b
+    worst_cols = np.zeros((33, n), np.int64)
+    worst_cols[:32] = 0xFFFF
+    worst_cols[0] += 1                   # 2^512 - 1 + 1: 32 carries
+    worst_diff = np.zeros((16, n), np.int64)
+    worst_diff[0] = -1                   # 0 - 1: 16 borrows
+    if kind == "worst":
+        return worst_cols, worst_diff
+    diff = a - b
+    if kind == "mixed":
+        cols[:, ::3], diff[:, ::3] = worst_cols[:, ::3], worst_diff[:, ::3]
+    return cols, diff
+
+
+@pytest.mark.parametrize("kind", ["random", "worst", "mixed"])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1024])
+def test_carry_and_borrow_routes_agree(kind, n):
+    """carry and sub_borrow's two CPU routes (whole-tensor passes, limb by
+    limb) give the same limbs and borrow as integer arithmetic, on either
+    side of the lane count where carry switches route."""
+    from jolt_tpu_torch.field import arith
+    cols, diff = _carry_inputs(kind, n, np.random.default_rng(n))
+    k = cols.shape[0]
+    want = [sum(int(v) << (16 * i) for i, v in enumerate(cols[:, j]))
+            % (1 << (16 * k)) for j in range(n)]
+    t = torch.from_numpy(cols)
+    for got in (arith._carry_limbs(t), arith._carry_passes(t),
+                arith.carry(t)):
+        g = got.numpy()
+        assert (g >= 0).all() and (g < 1 << 16).all()
+        assert [sum(int(v) << (16 * i) for i, v in enumerate(g[:, j]))
+                for j in range(n)] == want
+    value = [sum(int(v) << (16 * i) for i, v in enumerate(diff[:, j]))
+             for j in range(n)]
+    d = torch.from_numpy(diff)
+    zero = torch.zeros_like(d)
+    for out, borrow in (arith._borrow_limbs(d), arith._borrow_passes(d),
+                        arith.sub_borrow(d, zero)):
+        o = out.numpy()
+        assert (o >= 0).all() and (o < 1 << 16).all()
+        assert [sum(int(v) << (16 * i) for i, v in enumerate(o[:, j]))
+                for j in range(n)] == [v % (1 << 256) for v in value]
+        assert borrow.tolist() == [int(v < 0) for v in value]

@@ -382,7 +382,7 @@ def test_fs_round_plain_matches_jolt_tpus_cubic_round(frozen, inputs):
 
 @pytest.mark.parametrize("degree,use_hint,n",
                          [(2, True, 2), (3, True, 4), (3, False, 4),
-                          (5, False, 6)])
+                          (5, False, 6), (9, True, 9), (12, False, 13)])
 def test_fs_round_plain_matches_the_host_round(degree, use_hint, n):
     """The round poly interpolated on the host (UniPoly), appended to a
     host transcript: the same compressed coefficients, challenge, claim."""
@@ -619,11 +619,42 @@ def test_primary_sumcheck_modes_agree(monkeypatch):
 
 
 def test_full_vm_primary_degree_fits_k9():
-    """K9 is sized for rv32i_vm()'s primary sumcheck degree."""
+    """K9 sizes its buffers from the round degree: rv32i_vm()'s primary
+    sumcheck (degree 8) fits the 48 KiB a block takes without opting in,
+    as every degree up to 37 does."""
     from jolt_tpu_torch.vm.rv32i_vm import rv32i_vm
     degree = max(cls().g_poly_degree(4)
                  for cls in rv32i_vm().instruction_classes) + 2
-    assert degree == fsd.MAX_DEGREE
+    assert degree == 8
+    assert fsd.k9_smem_bytes(degree) <= fsd.k9_smem_bytes(37) <= 48 * 1024
+    assert fsd.k9_smem_bytes(38) > 48 * 1024
+
+
+@pytest.mark.parametrize("degree", [9, 12])
+def test_prove_arbitrary_above_degree_8_matches_jolt_tpu(monkeypatch,
+                                                        degree):
+    """Rounds of degree 9 and 12 (the product of 9 and 12 MLEs over 2^3
+    points), which device Fiat-Shamir refused while K9's buffers were
+    sized for degree 8: with it on, the same transcript, challenges and
+    final values as with it off and as jolt_tpu's (frozen in
+    fixtures/port/fs_degree.npz by scripts/freeze_port_fixtures.py, its
+    `fs_degree` case: minutes of XLA compiles)."""
+    rows = _freeze_script().fs_degree_inputs()[f"deg{degree}"]
+    with np.load(ROOT / "fixtures" / "port" / "fs_degree.npz") as z:
+        want = {k: z[k] for k in z.files if k.startswith(f"deg{degree}_")}
+    runs = []
+    for mode in (OFF, DEVICE_ONLY):
+        for k, v in mode.items():
+            monkeypatch.setenv(k, v)
+        polys = [fd.ints_to_device(FR, row.tolist(), "cpu") for row in rows]
+        t = Transcript(f"deg{degree}".encode())
+        proof, r, finals = sumcheck.prove_arbitrary(
+            3, polys, sumcheck.comb_product, degree, t, FR)
+        runs.append(_sc_record(proof, r, finals, t))
+        assert (states(t) == want[f"deg{degree}_states"]).all()
+        assert (scalars_to_numpy(r) == want[f"deg{degree}_r"]).all()
+        assert (scalars_to_numpy(finals) == want[f"deg{degree}_finals"]).all()
+    assert runs[0] == runs[1]
 
 
 def test_surge_prove_with_the_chain_equals_the_host_prove(monkeypatch):

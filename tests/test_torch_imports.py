@@ -2,8 +2,9 @@
 to the CPU.
 
 - importing jolt_tpu_torch (every module of it: the SDK, the native
-  runtime, the ELF reader, the serializers, the profiling spans and the
-  tracer's machine model among them) loads neither
+  runtime, the ELF reader, the serializers, the profiling spans, the
+  tracer's machine model and the multi-device prover among them) loads
+  neither
   jax nor any jolt_tpu module nor elftools;
 - no source of the port, and not chip_smoke.py, imports them;
 - an entry point called with no CUDA card and no device="cpu" raises;
@@ -37,6 +38,7 @@ from jolt_tpu_torch.field import kernels as fk
 from jolt_tpu_torch.field.spec import fr_spec
 from jolt_tpu_torch.instructions import XorInstruction
 from jolt_tpu_torch.lasso import SurgePreprocessing
+from jolt_tpu_torch.parallel import sharding
 from jolt_tpu_torch.subprotocols import fs_device as fsd
 from jolt_tpu_torch.subprotocols.grand_product_quarks import QuarkGrandProduct
 from jolt_tpu_torch.utils import keccak_device as kd
@@ -64,7 +66,8 @@ need = {"jolt_tpu_torch.sdk", "jolt_tpu_torch.native",
         "jolt_tpu_torch.utils.profiling", "jolt_tpu_torch.utils.caches",
         "jolt_tpu_torch.tracer.bus", "jolt_tpu_torch.tracer.peripherals",
         "jolt_tpu_torch.field.binius", "jolt_tpu_torch.utils.keccak_device",
-        "jolt_tpu_torch.subprotocols.fs_device"}
+        "jolt_tpu_torch.subprotocols.fs_device",
+        "jolt_tpu_torch.parallel", "jolt_tpu_torch.parallel.sharding"}
 bad += sorted(f"not imported: {m}" for m in need - set(sys.modules))
 print(len([m for m in sys.modules if m.startswith("jolt_tpu_torch")]))
 sys.exit("loaded: " + ", ".join(bad) if bad else 0)
@@ -128,6 +131,9 @@ _ENTRY_POINTS = {
     "evm hyperkzg_fixture": lambda: evm_fixtures.hyperkzg_fixture(),
     "evm spartan_fixture": lambda: evm_fixtures.spartan_fixture(),
     "evm write_fixtures": lambda: evm_fixtures.write_fixtures("unused"),
+    "sharding make_mesh": lambda: sharding.make_mesh(2),
+    "sharding make_mesh virtual": lambda: sharding.make_mesh(2,
+                                                             device="cuda"),
 }
 
 

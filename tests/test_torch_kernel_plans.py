@@ -125,8 +125,8 @@ def _constexprs(src: str) -> dict[str, int]:
 def test_launch_constants_match_the_sources():
     """Each kernel's CUDA function and threads per block, K2's plan
     constants and K8's and K9's limits (segments, the events K8's shared
-    memory holds, K9's degree), as the Python side keeps them, agree with
-    the sources."""
+    memory holds, K9's shared memory at each degree), as the Python side
+    keeps them, agree with the sources."""
     from jolt_tpu_torch.subprotocols import fs_device  # noqa: F401 (K9)
     from jolt_tpu_torch.utils import keccak_device  # noqa: F401 (K8)
     csrc = Path(nat.__file__).resolve().parent / "csrc"
@@ -140,7 +140,12 @@ def test_launch_constants_match_the_sources():
     c = _constexprs((csrc / "gp_pair.cu").read_text())
     assert (c["GP_WARPS"], c["GP_MIN_BLOCKS"], c["GP_MAX_B"]) == \
         (fk.GP_WARPS, fk.GP_MIN_BLOCKS, fk.GP_MAX_B)
-    c = _constexprs((csrc / "keccak.cu").read_text())
-    assert (c["MAX_SEGS"], c["K8_SMEM_EVENTS"], c["MAX_DEGREE"]) == \
-        (keccak_device.MAX_SEGS, keccak_device.SMEM_EVENTS,
-         fs_device.MAX_DEGREE)
+    src = (csrc / "keccak.cu").read_text()
+    c = _constexprs(src)
+    assert (c["MAX_SEGS"], c["K8_SMEM_EVENTS"]) == \
+        (keccak_device.MAX_SEGS, keccak_device.SMEM_EVENTS)
+    body = re.search(r"k9_smem_bytes\(long long degree\) \{\s*return ([^;]+);",
+                     src)[1]
+    for d in (1, 2, 3, 8, 9, 12, 37, 38, 80):
+        assert eval(" ".join(body.split()), {}, {"degree": d}) == \
+            fs_device.k9_smem_bytes(d)

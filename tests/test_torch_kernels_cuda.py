@@ -452,6 +452,55 @@ def test_fs_round(dev, degree, use_hint, n_evals):
         state = got[3]
 
 
+@pytest.mark.parametrize("degree,use_hint,n_evals",
+                         [(9, True, 9), (9, False, 10), (12, True, 13),
+                          (12, False, 13), (40, False, 41)])
+def test_fs_round_past_degree_8(dev, degree, use_hint, n_evals):
+    """K9 sizes its shared buffers from the degree at launch: 9 and 12,
+    and 40, past the 48 KiB a block takes without opting in, equal the
+    plain version; edge residues."""
+    spec = fr_spec()
+    state = fsd.state_to_device(Transcript(b"k9 degree"), dev)
+    for seed in range(2):
+        evals = _edge(spec, dev, n_evals, seed=seed)
+        prev = _edge(spec, dev, 1, seed=seed + 5)[:, 0]
+        got = _launched(fsd.FS_ROUND, lambda: fsd.fs_round(
+            spec, evals, prev, state, degree, use_hint))
+        _equal(got, fsd.fs_round_plain(spec, evals, prev, state, degree,
+                                       use_hint))
+        state = got[3]
+
+
+def test_fs_round_refuses_a_degree_past_the_cards_shared_memory(dev):
+    spec = fr_spec()
+    state = fsd.state_to_device(Transcript(b"k9"), dev)
+    evals = _edge(spec, dev, 101)
+    with pytest.raises(ValueError, match="degree 100"):
+        fsd.fs_round(spec, evals, evals[:, 0], state, 100, False)
+
+
+def test_sharded_gp_round_on_a_virtual_card_mesh(dev):
+    """parallel/sharding.py on a virtual mesh of 4 shards on the card: B = 11
+    padded to 12; K2 and K3 once per shard; equal to one unsharded call."""
+    from jolt_tpu_torch.parallel import sharding as sh
+    spec = fr_spec()
+    mesh = sh.make_mesh(4, device=dev)
+    l = _rand(spec, dev, 11, 64, seed=6).movedim(0, 1).contiguous()
+    r = _rand(spec, dev, 11, 64, seed=7).movedim(0, 1).contiguous()
+    eq, co = _rand(spec, dev, 64, seed=8), _rand(spec, dev, 11, seed=9)
+    rc = fd.scalar_to_device(spec, 0x1234567 ** 9, dev)
+    pl, pr = sh.maybe_shard_pair(mesh, (l, r))
+    cop = torch.cat([co, fd.zeros(spec, (1,), dev)], dim=1)
+    before = (fk.GP_PAIR_EVALS.launches, fk.GP_PAIR_BIND.launches)
+    e, nl, nr, neq = sh.sharded_gp_round(mesh, spec, pl, pr, eq, cop, rc)
+    torch.cuda.synchronize()
+    assert (fk.GP_PAIR_EVALS.launches - before[0],
+            fk.GP_PAIR_BIND.launches - before[1]) == (4, 4)
+    _equal(e, fk.gp_pair_evals(spec, l, r, eq, co))
+    _equal((nl.gather()[:11], nr.gather()[:11], neq.gather()),
+           fk.gp_pair_bind(spec, l, r, eq, rc))
+
+
 def test_gp_pair_bind_takes_a_challenge_on_the_card(dev):
     spec = fr_spec()
     l = _rand(spec, dev, 3, 64, seed=3).movedim(0, 1).contiguous()
