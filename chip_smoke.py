@@ -28,7 +28,14 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      challenges),
      K9 (the sumcheck round) at d = 2 and 3 with the hint, at the full
      VM's primary degree 8 without it, and past it at d = 9 (the hint)
-     and d = 12, on edge residues;
+     and d = 12, on edge residues; then the field programs: K10 (the
+     modular add and subtract) on the primary round's e_t halves,
+     [16, 55, 2^15] views of [16, 55, 2^16], and on a broadcast scalar,
+     edge residues and a = b, K11 (the modular sum) over 2^23 terms (the
+     sha2-chain prove's largest sum) and 2^20, over the leading axis of
+     [16, 110, 2^15] (a lane per row) and at lengths 1 and 3, and K12 (the
+     primary round's point finisher) at h = 2^15, and each of their
+     wrappers' host time per call;
   3. the main path begins (launch counts set to 0): HyperKZG setup of the
      2^20-point SRS, generated on the card; its first 2^17 points must equal
      fixtures/srs/srs_131072_6a6f6c74.npz bit for bit;
@@ -59,8 +66,9 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      sha2-chain(13) on rv32i_vm() (29 instructions, 26 subtables, C = 4,
      M = 2^16) with the input 0x05 x 32, traced to 62,413 steps, padded to
      T = 2^16, HyperKZG from the SRS fixture, as phase 6: one timed prove
-     (K1-K5 must have launched; the largest call of each kernel, and of K2
-     and K3 at each batch size, replayed against the plain version),
+     (K1-K5, K10-K12 must have launched; the largest call of each kernel,
+     and of K2 and K3 at each batch size, replayed against the plain
+     version),
      accept, tamper rejected, timed verify; the guest's 32
      output bytes must equal hashlib's sha256 iterated 13 times.  The
      prove runs with device Fiat-Shamir and the chained grand products
@@ -173,7 +181,10 @@ and prints the compiler and the libraries' paths.  Then a {"kernels":
 {...}}.  Imports nothing of JAX or jolt_tpu.
 K7 (jac_double) lies on no VM or Surge path (see csrc/point.cu): phase 2
 holds it against its plain version, and those paths' launch checks exempt
-it; phase 11's Hyrax commit launches it.  Phases 3-10, 12 (the quark
+it; phase 11's Hyrax commit launches it.  K12 (primary_finish) lies on
+the VM paths, not on Surge's (phase 4 exempts it); the kernels line's
+`launches` of K10-K12, the field programs' slice, are phase 8's
+sha2-chain(13) path (setup and the prove).  Phases 3-10, 12 (the quark
 path) and 13-15 run with device Fiat-Shamir, the default on the card, so
 K8 and K9 launch on them.
 """
@@ -228,9 +239,16 @@ REGS_PER_SM, SMEM_PER_SM, MAX_WARPS_PER_SM = 65536, 228 * 1024, 64
 OFF_PATH = {"jac_double": "no VM or Surge prove path of either package "
             "launches jac_double_pallas (K7); phase 11's Hyrax commit does "
             "(the windowed MSM's Horner doublings)"}
+OFF_SURGE = {"primary_finish": "the Jolt VM's primary sumcheck finisher "
+             "(K12); Surge's primary sumcheck runs subprotocols/sumcheck.py"}
+FIELD_KERNELS = ("field_addsub", "field_sum", "primary_finish")   # K10-K12:
+#   their kernels line's launches are phase 8's path
+ADDSUB_OPS = 25                    # 32-bit operations of one modular add
+#   or subtract (field.cuh add_mod, sub_mod): 8-word add (subtract), the
+#   8-word conditional subtraction (addition) with its borrow, 8 selects
 PCS_LOGN = 20
 VM_KERNELS = ("mont_mul", "mont_mul_bl", "gp_pair_evals", "gp_pair_bind",
-              "proj_cadd") + FS_KERNELS
+              "proj_cadd") + FS_KERNELS + FIELD_KERNELS
 PCS_KERNELS = ("mont_mul", "proj_cadd", "jac_add", "jac_double")
 HYRAX_KERNELS = ("mont_mul", "jac_add", "jac_double")
 KZG_KERNELS = ("mont_mul", "proj_cadd")
@@ -244,7 +262,7 @@ GP_COMMIT_KERNELS = ("mont_mul", "proj_cadd", "jac_add")
 # are not chained (jolt_tpu's _chain_ok), so K8 does not launch; K6
 # folds the sharded commit's per-shard sums
 MESH_KERNELS = ("mont_mul", "mont_mul_bl", "gp_pair_evals", "gp_pair_bind",
-                "proj_cadd", "jac_add", "fs_round")
+                "proj_cadd", "jac_add", "fs_round") + FIELD_KERNELS
 EVM_KERNELS = ("mont_mul", "mont_mul_bl", "gp_pair_evals", "gp_pair_bind",
                "proj_cadd")
 # phase 14 runs the scaffold's host.py as __main__ in a child process and
@@ -323,6 +341,18 @@ def work(name: str, args) -> tuple[int, int]:
     if name in FS_KERNELS:
         return fs_work(name, args)[:2]
     tb = lambda *ts: 4 * sum(t.numel() for t in ts)
+    if name == "field_addsub":
+        import torch
+        _, a, b, op = args
+        n = math.prod(torch.broadcast_shapes(a.shape, b.shape)[1:])
+        return tb(b) + (0 if op == 2 else tb(a)) + 4 * 16 * n, 0
+    if name == "field_sum":
+        _, a, axis = args
+        ax = axis + 1 if axis >= 0 else axis + a.dim()
+        return tb(a) + 4 * a.numel() // a.shape[ax], 0
+    if name == "primary_finish":
+        _, eq, out, inner = args
+        return tb(eq, out, inner) + 4 * 16, eq.shape[1]
     if name == "mont_mul":
         import torch
         _, a, b = args
@@ -341,6 +371,23 @@ def work(name: str, args) -> tuple[int, int]:
     n = pts[0][0].numel()
     per = {"proj_cadd": 12, "jac_add": 16, "jac_double": 7}[name]
     return tb(*pts) + 3 * 4 * 16 * n, per * n
+
+
+def field_adds(name: str, args) -> int:
+    """Modular adds and subtracts of one K10, K11 or K12 call (ADDSUB_OPS
+    32-bit operations each): an add an element; n - 1 a sum of n terms;
+    a subtract and an add a finisher's term."""
+    if name == "field_addsub":
+        import torch
+        return math.prod(torch.broadcast_shapes(args[1].shape,
+                                                args[2].shape)[1:])
+    if name == "field_sum":
+        _, a, axis = args
+        n = a.shape[axis + 1 if axis >= 0 else axis + a.dim()]
+        return a.numel() // 16 // n * (n - 1)
+    if name == "primary_finish":
+        return 2 * args[1].shape[1]
+    return 0
 
 
 def ptxas_usage(reports: dict[str, str]) -> dict[str, dict]:
@@ -528,6 +575,7 @@ def main() -> None:
                                           sha3_chain_program)
     from jolt_tpu_torch.vm import fixtures as fx
     from jolt_tpu_torch.vm.host import fibonacci_program, trace_program
+    from jolt_tpu_torch.vm import instruction_lookups as il
     from jolt_tpu_torch.vm.rv32i_vm import rv32i_vm
 
     dev = torch.device("cuda")
@@ -646,7 +694,10 @@ def main() -> None:
         "jac_double": (ck.jac_double, lambda p: ck.jac_double_plain(*p)),
         "transcript_events": (kd.transcript_events,
                               kd.transcript_events_plain),
-        "fs_round": (fsd.fs_round, fsd.fs_round_plain)}
+        "fs_round": (fsd.fs_round, fsd.fs_round_plain),
+        "field_addsub": (fk.field_addsub, fk.field_addsub_plain),
+        "field_sum": (fk.field_sum, fk.field_sum_plain),
+        "primary_finish": (il.primary_finish, il.primary_finish_plain)}
     results = {}                    # {kernel: {phase: row}}
     more = {}                       # {kernel: [rows at further shapes]}
     launch = {}                     # the launch floor, measured with K8
@@ -669,6 +720,7 @@ def main() -> None:
         muls = products * MULS_PER_PRODUCT
         if name in FS_KERNELS:          # and the Keccak's 32-bit operations
             muls += fs_work(name, args)[2] * KECCAK_OPS
+        muls += field_adds(name, args) * ADDSUB_OPS
         ops_ms = muls / imad_rate * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -878,6 +930,73 @@ def main() -> None:
                 f"residues" + (", the hint" if hint9 else ""),
                 (FR, edge_fe(FR, n9), prev9, st8, d9, hint9),
                 record=d9 == 3)
+    # K10-K12, the field programs, at the primary sumcheck's first round
+    # on rv32i_vm() (T = 2^16, 55 memories): K10 on e_t's halves (views,
+    # element stride 1, batch stride 2^16), on a broadcast constant (DevF's
+    # coerced ints), on edge residues and a = b
+    h16 = 1 << 15
+    e16 = rand_fe(FR, 55, 2 * h16)
+    lo16, hi16 = e16[..., :h16], e16[..., h16:]
+    compare("phase 2", "field_addsub", "[16,55,2^15] + [16,55,2^15], the "
+            "halves of [16,55,2^16]", (FR, lo16, hi16, fk.ADD))
+    compare("phase 2", "field_addsub", "[16,55,2^15] - [16,55,2^15], the "
+            "halves of [16,55,2^16]", (FR, hi16, lo16, fk.SUB), record=False)
+    one16 = arith.const_limbs(FR, "r", dev).reshape(16, 1, 1)
+    compare("phase 2", "field_addsub", "[16,55,2^15] half - [16,1,1] "
+            "broadcast constant", (FR, lo16, one16, fk.SUB), record=False)
+    ed16, ee16 = edge_fe(FR, 55, 1 << 12), edge_fe(FR, 55, 1 << 12)
+    for what, a16, b16, op16 in (("+", ed16, ee16, fk.ADD),
+                                 ("-", ed16, ee16, fk.SUB),
+                                 ("- a = b:", ed16, ed16, fk.SUB),
+                                 ("neg", ed16, ed16, fk.NEG)):
+        compare("phase 2", "field_addsub", f"[16,55,2^12] {what} edge "
+                "residues", (FR, a16, b16, op16), record=False)
+    # K11: the sha2-chain prove's largest sum, one row of 2^23 terms (the
+    # cut across warps), one of 2^20, the leading axis of [16, 110, 2^15]
+    # (a lane per row), lengths 1 and 3
+    compare("phase 2", "field_sum", "[16,2^23] along -1",
+            (FR, rand_fe(FR, 8 * n), -1))
+    compare("phase 2", "field_sum", "[16,2^20] along -1",
+            (FR, rand_fe(FR, n), -1), record=False)
+    compare("phase 2", "field_sum", "[16,110,2^15] along 0",
+            (FR, rand_fe(FR, 110, h16), 0), record=False)
+    compare("phase 2", "field_sum", "[16,55,1] along -1 edge residues",
+            (FR, edge_fe(FR, 55, 1), -1), record=False)
+    compare("phase 2", "field_sum", "[16,3] along -1 edge residues",
+            (FR, edge_fe(FR, 3), -1), record=False)
+    # K12 at the first round's h = 2^15: eq_t, out_t lo halves of [16, 2^16]
+    eq16, out16 = rand_fe(FR, 2 * h16), rand_fe(FR, 2 * h16)
+    compare("phase 2", "primary_finish", "eq, out [16,2^15] halves of "
+            "[16,2^16], inner [16,2^15]",
+            (FR, eq16[:, :h16], out16[:, :h16], rand_fe(FR, h16)))
+    ed16 = edge_fe(FR, 2 * h16)
+    compare("phase 2", "primary_finish", "[16,2^15] x 3 edge residues",
+            (FR, ed16[:, :h16], ed16[:, h16:], edge_fe(FR, h16)),
+            record=False)
+    # each wrapper's host time per call (enqueue only, at a size whose
+    # kernel is shorter than its wrapper), as the primary round calls them
+    sm16 = rand_fe(FR, 55, 128)
+    for name, args in (
+            ("field_addsub", (FR, sm16[..., :64], sm16[..., 64:], fk.ADD)),
+            ("field_addsub", (FR, sm16[:, 0, :64], one16[:, 0], fk.SUB)),
+            ("field_sum", (FR, sm16[:, 0], -1)),
+            ("primary_finish", (FR, eq16[:, :h16], out16[:, :h16], eq16[
+                :, h16:]))):
+        fn = KERNEL[name][0]
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn(*args)
+        host16 = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        results[name]["phase 2"].setdefault("host_ms", host16)
+        print(f"phase 2: {name} host_ms per call {host16:.4f} (the "
+              f"wrapper's enqueue, no sync; " + " x ".join(
+                  str(list(t.shape)) for t in args[1:]
+                  if isinstance(t, torch.Tensor)) + ")", flush=True)
+    del e16, lo16, hi16, ed16, ee16, eq16, out16, sm16
+    torch.cuda.empty_cache()
 
     phase_done("phase 2")
 
@@ -908,7 +1027,7 @@ def main() -> None:
     print(f"phase 4: warm-up prove {warm_s:.3f} s; main-path launches "
           f"(setup + this prove) {json.dumps(main_counts)}", flush=True)
     missing = [k for k, v in main_counts.items()
-               if v <= 0 and k not in OFF_PATH]
+               if v <= 0 and k not in OFF_PATH and k not in OFF_SURGE]
     if missing:
         fail(f"kernels of the main path never launched: {missing}")
     surge_verify(pre, proof, debug_transcript=transcript)
@@ -978,9 +1097,11 @@ def main() -> None:
     # largest call on the card (with `by_batch`, K2's and K3's largest at
     # each batch size); the copies are replayed against the plain versions.
     sites = {name: (fk if name in ("mont_mul", "mont_mul_bl",
-                                   "gp_pair_evals", "gp_pair_bind")
+                                   "gp_pair_evals", "gp_pair_bind",
+                                   "field_addsub", "field_sum")
                     else kd if name == "transcript_events"
-                    else fsd if name == "fs_round" else cd)
+                    else fsd if name == "fs_round"
+                    else il if name == "primary_finish" else cd)
              for name in KERNEL}
 
     def tensors(x):
@@ -2016,7 +2137,9 @@ def main() -> None:
         r = results[k.name]["phase 2"]
         row = {
             "name": k.name, "route": "cuda", "source": k.source_path,
-            "replaces": k.replaces, "launches": main_counts[k.name],
+            "replaces": k.replaces,
+            "launches": (sha2_counts if k.name in FIELD_KERNELS
+                         else main_counts)[k.name],
             "max_abs_err": max(v["max_abs_err"] for v in
                                [*results[k.name].values(),
                                 *more.get(k.name, [])]),
@@ -2040,7 +2163,7 @@ def main() -> None:
             "launches_scaffold_prove": scaffold_counts.get(k.name, 0),
             "launches_mesh_path": mesh_counts[k.name]}
         for key in ("latency_bound_ms", "serial_latency_bound_ms",
-                    "launch_ms"):
+                    "launch_ms", "host_ms"):
             if key in r:
                 row[key] = r[key]
         row.update(usage[k.name])
@@ -2061,6 +2184,10 @@ def main() -> None:
             row["at_pcs_shape"] = max(pcs_calls, key=lambda r: r["bound_ms"])
         if k.name in OFF_PATH:
             row["off_main_path"] = OFF_PATH[k.name]
+        if k.name in FIELD_KERNELS:
+            row["launches_path"] = f"phase 8 sha2-chain({SHA2_ITERS})"
+        if k.name in OFF_SURGE:
+            row["off_surge_path"] = OFF_SURGE[k.name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)

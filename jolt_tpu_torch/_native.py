@@ -30,7 +30,7 @@ from .utils.caches import build_dir
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(build_dir())
-SOURCES = ("mont", "gp_pair", "point", "keccak")
+SOURCES = ("mont", "gp_pair", "point", "keccak", "field_ops")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -126,15 +126,20 @@ class CudaKernel:
     def launch(self, *args, device: torch.device) -> None:
         """Call the C entry point with `args` under `device`, the device of
         the tensors it is given: the runtime launches on its current
-        device, so a shard of a mesh on cuda:1 launches there."""
+        device, so a shard of a mesh on cuda:1 launches there.  The
+        device is switched only where it is not already current (the
+        switch costs some 8 us a call)."""
         if self._fn is None:
             lib = library(self.source)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        with torch.cuda.device(device):
+        if device.index == torch.cuda.current_device():
             rc = self._fn(*args)
+        else:
+            with torch.cuda.device(device):
+                rc = self._fn(*args)
         if rc != 0:
             msg = library(self.source).jt_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")
@@ -150,12 +155,16 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's address, for a `vptr` argument."""
+    return t.data_ptr()
 
 
-def stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream(t: torch.Tensor) -> int:
+    """The handle of the current stream of t's device, for a `vptr`
+    argument (read without building a torch.cuda.Stream, which costs some
+    10 us a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def words(values) -> ctypes.Array:

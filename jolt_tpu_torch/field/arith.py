@@ -192,14 +192,13 @@ def reduce_wide(spec: FieldSpec, total: torch.Tensor, n: int, mul
     return add(spec, lo, mul(spec, hi.int(), r2))
 
 
-def sum_limbs(spec: FieldSpec, a: torch.Tensor, dim: int, mul
-              ) -> torch.Tensor:
+def sum_limbs(spec: FieldSpec, a: torch.Tensor, dim: int) -> torch.Tensor:
     """Modular sum over logical axis `dim` of a limb tensor [16, ...]: the
     limbs are summed as plain integers (exact in int64 for fewer than 2^47
     terms), then reduced once (reduce_wide).  One multiply, whatever the
     number of terms."""
     ax = dim + 1 if dim >= 0 else dim + a.dim()
-    return reduce_wide(spec, a.long().sum(dim=ax), a.shape[ax], mul)
+    return reduce_wide(spec, a.long().sum(dim=ax), a.shape[ax], mont_mul)
 
 
 def suffix_sums(spec: FieldSpec, a: torch.Tensor, mul) -> torch.Tensor:

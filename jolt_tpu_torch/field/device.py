@@ -5,9 +5,11 @@ holding 16-bit little-endian limbs in Montgomery form (R = 2^256), limbs
 first -- jolt_tpu/field/device.py's layout, so converting between the two
 packages is a dtype cast (see convert.py).
 
-`fmul` is the Montgomery product: on a CUDA tensor it launches the
-hand-written kernel (kernels.mont_mul), on a CPU tensor it runs its plain
-version.  Add, subtract and sum are plain tensor code (arith.py).
+`fmul` (the Montgomery product), `fadd`, `fsub`, `fneg` and `fsum` each
+launch one hand-written kernel on a CUDA tensor (kernels.mont_mul, K1;
+kernels.field_addsub, K10; kernels.field_sum, K11) and run its plain
+version (arith.py) on a CPU tensor.  `fsuffix_sum` is plain tensor code
+around K1.
 """
 from __future__ import annotations
 
@@ -22,15 +24,17 @@ W = LIMB_BITS
 
 
 def fadd(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return arith.add(spec, a, b)
+    """(a + b) mod p over broadcast limb tensors, both reduced."""
+    return kernels.field_addsub(spec, a, b, kernels.ADD)
 
 
 def fsub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return arith.sub(spec, a, b)
+    """(a - b) mod p over broadcast limb tensors, both reduced."""
+    return kernels.field_addsub(spec, a, b, kernels.SUB)
 
 
 def fneg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    return fsub(spec, torch.zeros_like(a), a)
+    return kernels.field_addsub(spec, a, a, kernels.NEG)
 
 
 def fmul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,8 +49,8 @@ def fselect(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor
 
 
 def fsum(spec: FieldSpec, a: torch.Tensor, axis: int) -> torch.Tensor:
-    """Modular sum along a logical axis (see arith.sum_limbs)."""
-    return arith.sum_limbs(spec, a, axis, fmul)
+    """Modular sum along a logical axis (kernels.field_sum)."""
+    return kernels.field_sum(spec, a, axis)
 
 
 def fsuffix_sum(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

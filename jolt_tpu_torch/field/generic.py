@@ -3,16 +3,30 @@
 Instruction `combine_lookups` collation polynomials and subtable MLEs are
 written once over a generic field type: they take either host `FElt`s
 (verifier) or `DevF` device tensors (prover sumcheck).  int/FElt operands
-are structural constants such as 2^b, uploaded as one limb vector and
-broadcast (the Montgomery kernel reads a scalar operand with stride 0).
+are structural constants such as 2^b, uploaded once per (field, value,
+device) as one limb vector and broadcast (the kernels read a scalar
+operand with stride 0).  An upload from host memory waits for the card
+to drain, so the collations of the primary sumcheck, which use the same
+few dozen constants at every point of every round, reuse the cached
+vectors; they are read-only.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import device as fd
 from .host import FElt
 from .spec import FieldSpec
+
+
+@functools.lru_cache(maxsize=4096)
+def const_limbs(spec: FieldSpec, v: int, device: torch.device
+                ) -> torch.Tensor:
+    """The Montgomery limbs [16] of v (0 <= v < p) on `device`, uploaded
+    once (read-only: no caller writes into its operands)."""
+    return fd.scalar_to_device(spec, v, device)
 
 
 class DevF:
@@ -33,7 +47,7 @@ class DevF:
             v = other % self.spec.p
         else:
             return NotImplemented
-        const = fd.scalar_to_device(self.spec, v, self.limbs.device)
+        const = const_limbs(self.spec, v, self.limbs.device)
         return self.limbs, const.reshape(
             (fd.L,) + (1,) * (self.limbs.dim() - 1))
 

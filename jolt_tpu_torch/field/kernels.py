@@ -1,21 +1,29 @@
-"""Field kernels: Montgomery products (K1, K4) and the GKR pair round (K2, K3).
+"""Field kernels: Montgomery products (K1, K4), the GKR pair round (K2,
+K3), and the modular add, subtract and sum (K10, K11).
 
 Each wrapper takes limb tensors in jolt_tpu's layouts.  On CPU tensors it
 runs the plain PyTorch version beside it (the tests' path); on CUDA
 tensors it checks device, dtype, shape and strides, allocates its outputs
-with torch.empty, launches the hand-written kernel of csrc/mont.cu or
-csrc/gp_pair.cu on the current stream, and counts the launch.  It never
-falls back from the card to the plain version.
+with torch.empty, launches the hand-written kernel of csrc/ on the
+current stream, and counts the launch.  It never falls back from the
+card to the plain version.
 
-| wrapper        | replaces (jolt_tpu/field/pallas_mont.py) | source          |
-| mont_mul       | mont_mul_pallas (K1)                     | csrc/mont.cu    |
-| mont_mul_bl    | mont_mul_bl_pallas (K4)                  | csrc/mont.cu    |
-| gp_pair_evals  | gp_pair_evals_pallas (K2)                | csrc/gp_pair.cu |
-| gp_pair_bind   | gp_pair_bind_pallas (K3)                 | csrc/gp_pair.cu |
+| wrapper        | replaces                                        | source             |
+| mont_mul       | field/pallas_mont.py mont_mul_pallas (K1)       | csrc/mont.cu       |
+| mont_mul_bl    | field/pallas_mont.py mont_mul_bl_pallas (K4)    | csrc/mont.cu       |
+| gp_pair_evals  | field/pallas_mont.py gp_pair_evals_pallas (K2)  | csrc/gp_pair.cu    |
+| gp_pair_bind   | field/pallas_mont.py gp_pair_bind_pallas (K3)   | csrc/gp_pair.cu    |
+| field_addsub   | field/device.py _fadd_jit, _fsub_jit (K10, jit) | csrc/field_ops.cu  |
+| field_sum      | field/device.py _fsum_jit (K11, jit)            | csrc/field_ops.cu  |
+
+(paths under jolt_tpu/; K12, the primary sumcheck's point finisher, is
+vm/instruction_lookups.py's `primary_finish`, on K11's sum.)
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -47,6 +55,17 @@ GP_PAIR_BIND = nat.CudaKernel(
     "jolt_tpu/field/pallas_mont.py:769 gp_pair_bind_pallas",
     "gp_pair_bind_kernel", 256)
 
+FIELD_ADDSUB = nat.CudaKernel(
+    "field_addsub", "field_ops", "jt_field_addsub",
+    [nat.vptr] * 3 + [nat.i64] * 9 + [nat.u32p, nat.vptr],
+    "jolt_tpu/field/device.py:199-200 _fadd_jit, _fsub_jit (jax.jit)",
+    "field_addsub_kernel", 256)
+FIELD_SUM = nat.CudaKernel(
+    "field_sum", "field_ops", "jt_field_sum",
+    [nat.vptr] * 2 + [nat.i64] * 8 + [nat.vptr] * 2 + [nat.u32p, nat.vptr],
+    "jolt_tpu/field/device.py:401-403 _fsum_jit (jax.jit)",
+    "field_sum_kernel<0>", 256)
+
 GP_WARPS = 8          # warps per K2 block (GP_THREADS / 32 in gp_pair.cu)
 GP_MIN_BLOCKS = 2     # K2 blocks per SM (its launch bound in gp_pair.cu)
 GP_TILE = 32          # pair indices per warp
@@ -62,18 +81,46 @@ def _all_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _operand(name: str, t: torch.Tensor, shape):
-    """(tensor, limb stride, element stride) of a K1 operand: a scalar
-    [16, 1, ...] goes in with element stride 0 (never materialised); a
-    full-shape operand whose limb rows are contiguous goes in as it is;
-    anything else is made contiguous first."""
+@functools.cache
+def field_words(spec: FieldSpec) -> ctypes.Array:
+    """spec's modulus and inverse as the kernels take them (made once)."""
+    return nat.words(spec.words32())
+
+
+def _strides2d(t: torch.Tensor, shape) -> tuple[int, int, int] | None:
+    """(batch stride, limb stride, element stride) that address `t`
+    broadcast to `shape` [16, *batch] as (bb, i), i the last logical axis
+    and bb the others flattened; None where the leading axes do not
+    flatten to one stride."""
+    st = t.stride() if t.shape == shape else t.expand(shape).stride()
+    if len(shape) == 1:
+        return 0, st[0], 0
+    es = st[-1] if shape[-1] > 1 else 0
+    bs = span = None
+    for d in range(len(shape) - 2, 0, -1):        # innermost first
+        if shape[d] == 1:
+            continue
+        if span is not None and st[d] != span:
+            return None
+        bs = st[d] if bs is None else bs
+        span = st[d] * shape[d]
+    return bs or 0, st[0], es
+
+
+def _operand(name: str, t: torch.Tensor, shape, n: int):
+    """A K1 or K10 operand broadcast to `shape` (n elements): (tensor,
+    bs, ls, es), a view without a copy where _strides2d finds strides (a
+    scalar [16, 1, ...] with strides 0, a half of a wider tensor), else
+    the broadcast made contiguous."""
     if t.dim() < 1 or t.shape[0] != L:
-        raise ValueError(f"{name}: expected [16, ...] limbs, got {tuple(t.shape)}")
-    if t[0].numel() == 1:
-        return t, t.stride(0), 0
-    if tuple(t.shape) != tuple(shape) or not t[0].is_contiguous():
+        raise ValueError(f"{name}: expected [16, ...] limbs, got "
+                         f"{tuple(t.shape)}")
+    if not (t.shape == shape and t.is_contiguous()):
+        st = _strides2d(t, shape)
+        if st is not None:
+            return (t, *st)
         t = t.expand(shape).contiguous()
-    return t, t.stride(0), 1
+    return t, (shape[-1] if len(shape) > 1 else 1), n, 1
 
 
 # ---------------------------------------------------------------------------
@@ -86,16 +133,17 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor
     if _all_cpu(a, b):
         return arith.mont_mul(spec, a, b)
     nat.require_cuda("mont_mul", a, b)
-    shape = arith.bshape(a.shape, b.shape)
+    shape = a.shape if a.shape == b.shape else arith.bshape(a.shape, b.shape)
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    n = out[0].numel()
+    n = out.numel() // L
     if n == 0:
         return out
-    a, a_ls, a_es = _operand("mont_mul", a, shape)
-    b, b_ls, b_es = _operand("mont_mul", b, shape)
-    MONT_MUL.launch(nat.ptr(a), nat.ptr(b), nat.ptr(out), 1, n,
-                    0, a_ls, a_es, 0, b_ls, b_es, 0, n,
-                    nat.words(spec.words32()), nat.stream(out),
+    s = shape[-1] if len(shape) > 1 else 1
+    a, a_bs, a_ls, a_es = _operand("mont_mul", a, shape, n)
+    b, b_bs, b_ls, b_es = _operand("mont_mul", b, shape, n)
+    MONT_MUL.launch(nat.ptr(a), nat.ptr(b), nat.ptr(out), n // s, s,
+                    a_bs, a_ls, a_es, b_bs, b_ls, b_es, s, n,
+                    field_words(spec), nat.stream(out),
                     device=out.device)
     return out
 
@@ -135,7 +183,7 @@ def mont_mul_bl(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor
     MONT_MUL_BL.launch(nat.ptr(a), nat.ptr(b), nat.ptr(out), B, s,
                        a.stride(0), a.stride(1), 1,
                        b.stride(0), b.stride(1), 1, L * s, s,
-                       nat.words(spec.words32()), nat.stream(out),
+                       field_words(spec), nat.stream(out),
                        device=out.device)
     return out
 
@@ -176,7 +224,7 @@ def gp_pair_evals_plain(spec: FieldSpec, l, r, eq, coeffs) -> torch.Tensor:
     le3 = add(le2, m_l)
     re2 = add(r1, m_r)
     re3 = add(re2, m_r)
-    fsum = lambda x, d: arith.sum_limbs(spec, x, d, mul)
+    fsum = lambda x, d: arith.sum_limbs(spec, x, d)
     s0 = fsum(mul(spec, cl0, r0), 0)                     # [16, h]
     s2 = fsum(mul(spec, le2, re2), 0)
     s3 = fsum(mul(spec, le3, re3), 0)
@@ -253,7 +301,7 @@ def gp_pair_evals(spec: FieldSpec, l: torch.Tensor, r: torch.Tensor,
     for b0, b1 in gp_batch_chunks(B):
         part = _gp_pair_evals_launch(spec, l[b0:b1], r[b0:b1], eq,
                                      coeffs[:, b0:b1])
-        out = part if out is None else arith.add(spec, out, part)
+        out = part if out is None else field_addsub(spec, out, part, ADD)
     return out
 
 
@@ -268,7 +316,7 @@ def _gp_pair_evals_launch(spec: FieldSpec, l, r, eq, coeffs) -> torch.Tensor:
         nat.ptr(partials), nat.ptr(_gp_counter(l.device)), nat.ptr(out), B, h,
         groups, l.stride(0), l.stride(1), r.stride(0), r.stride(1),
         eq.stride(0), coeffs.stride(0), coeffs.stride(1), nblocks,
-        nat.words(spec.words32()), nat.stream(out), device=out.device)
+        field_words(spec), nat.stream(out), device=out.device)
     return out
 
 
@@ -319,6 +367,141 @@ def gp_pair_bind(spec: FieldSpec, l: torch.Tensor, r: torch.Tensor,
     GP_PAIR_BIND.launch(
         nat.ptr(l), nat.ptr(r), nat.ptr(eq), nat.ptr(nl), nat.ptr(nr),
         nat.ptr(neq), B, h, l.stride(0), l.stride(1), r.stride(0),
-        r.stride(1), eq.stride(0), rc, rc_dev, nat.words(spec.words32()),
+        r.stride(1), eq.stride(0), rc, rc_dev, field_words(spec),
         nat.stream(nl), device=nl.device)
     return nl, nr, neq
+
+
+# ---------------------------------------------------------------------------
+# K10: (a + b), (a - b) or -b mod p over broadcast limb tensors
+# ---------------------------------------------------------------------------
+
+ADD, SUB, NEG = 0, 1, 2        # K10's op codes (csrc/field_ops.cu)
+
+
+def field_addsub_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+                       op: int) -> torch.Tensor:
+    """field_addsub's function in plain limb arithmetic (arith.py)."""
+    if op == NEG:
+        return arith.sub(spec, torch.zeros_like(b), b)
+    return (arith.add if op == ADD else arith.sub)(spec, a, b)
+
+
+def field_addsub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+                 op: int) -> torch.Tensor:
+    """(a + b) mod p (op ADD), (a - b) mod p (SUB) or (0 - b) mod p (NEG;
+    `a` is not read) over broadcast limb tensors [16, *batch], both
+    reduced.  On CUDA, views (halves, broadcast scalars) go in with their
+    strides, without a copy; the output is contiguous."""
+    if _all_cpu(a, b):
+        return field_addsub_plain(spec, a, b, op)
+    nat.require_cuda("field_addsub", a, b)
+    if op == NEG:
+        a = b
+    shape = a.shape if a.shape == b.shape else arith.bshape(a.shape, b.shape)
+    out = torch.empty(shape, dtype=torch.int32, device=b.device)
+    n = out.numel() // L
+    if n == 0:
+        return out
+    s = shape[-1] if len(shape) > 1 else 1
+    a, a_bs, a_ls, a_es = _operand("field_addsub", a, shape, n)
+    b, b_bs, b_ls, b_es = _operand("field_addsub", b, shape, n)
+    FIELD_ADDSUB.launch(nat.ptr(a), nat.ptr(b), nat.ptr(out), n // s, s,
+                        a_bs, a_ls, a_es, b_bs, b_ls, b_es, op,
+                        field_words(spec), nat.stream(out),
+                        device=out.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K11: the modular sum along one logical axis
+# ---------------------------------------------------------------------------
+
+SUM_WAVE_WARPS = H100_SMS * 32  # warps that K11/K12 aim to keep running:
+#   a row is cut into chunks until about this many segments exist
+SUM_MIN_CHUNK = 128            # terms of a chunk, lanes along a row
+SUM_MIN_CHUNK_ROWS = 4         # terms of a chunk, lanes across rows
+
+
+def field_sum_plain(spec: FieldSpec, a: torch.Tensor, axis: int
+                    ) -> torch.Tensor:
+    return arith.sum_limbs(spec, a, axis)
+
+
+def sum_plan(rows: int, n: int, rows_fast: bool) -> tuple[int, int]:
+    """K11/K12's cut of `rows` sums of n terms: (chunk, chunks), the terms
+    of one segment and the segments of one row.  With rows_fast a warp
+    sums 32 rows (a lane each), else one.  A row is cut until about
+    SUM_WAVE_WARPS segments exist, into chunks of at least SUM_MIN_CHUNK
+    terms (SUM_MIN_CHUNK_ROWS with rows_fast); lanes along a row take
+    chunks of whole warps' worth of terms."""
+    groups = -(-rows // 32) if rows_fast else rows
+    least = SUM_MIN_CHUNK_ROWS if rows_fast else SUM_MIN_CHUNK
+    chunks = max(1, min(-(-SUM_WAVE_WARPS // groups), -(-n // least)))
+    chunk = -(-n // chunks)
+    if not rows_fast:
+        chunk = -(-chunk // 32) * 32
+    return chunk, -(-n // chunk)
+
+
+_SUM_SCRATCH: dict[tuple[torch.device, int], list[torch.Tensor]] = {}
+
+
+def sum_scratch(like: torch.Tensor, rows: int, chunks: int):
+    """K11/K12's partial sums and per-row tickets on `like`'s device, as
+    kernel arguments (partials, counters); null pointers where one chunk
+    a row needs neither.  Both are kept per stream, as K2's ticket: a
+    stream runs its launches in order, so the next launch finds the
+    counters back at 0 (the last warp of a row resets its own) and may
+    reuse the partials.  The counters are SUM_WAVE_WARPS words: sum_plan
+    cuts a row only while fewer rows (or groups of 32) exist.  The
+    partials grow to the largest call's rows x chunks x 8 words."""
+    if chunks == 1:
+        return None, None
+    key = (like.device, nat.stream(like))
+    if key not in _SUM_SCRATCH:
+        _SUM_SCRATCH[key] = [torch.zeros(SUM_WAVE_WARPS, dtype=torch.int32,
+                                         device=like.device), like.new_empty(0)]
+    counters, partials = _SUM_SCRATCH[key]
+    need = rows * chunks * 8
+    if partials.numel() < need:
+        partials = like.new_empty(max(need, 2 * partials.numel()))
+        _SUM_SCRATCH[key][1] = partials
+    return nat.ptr(partials), nat.ptr(counters)
+
+
+def sum_view(a: torch.Tensor, ax: int):
+    """K11's operand: a [16, ...] tensor with the summed (tensor) axis `ax`
+    moved last, as a view where its other axes flatten to one row stride
+    (else a contiguous copy): (view, rows, n, rs, ls, es)."""
+    v = a if ax == a.dim() - 1 else a.movedim(ax, -1)   # [16, *rest, n]
+    n = v.shape[-1]
+    rows = v.numel() // (L * n)
+    st = None if v.is_contiguous() else _strides2d(v, v.shape)
+    if st is None:
+        v = v.contiguous()
+        st = (n, rows * n, int(n > 1))
+    return (v, rows, n, *st)
+
+
+def field_sum(spec: FieldSpec, a: torch.Tensor, axis: int) -> torch.Tensor:
+    """Modular sum of a limb tensor [16, ...] along logical axis `axis`:
+    one K11 launch on CUDA, whatever the length."""
+    if a.device.type == "cpu":
+        return field_sum_plain(spec, a, axis)
+    nat.require_cuda("field_sum", a)
+    ax = axis + 1 if axis >= 0 else axis + a.dim()
+    if not 1 <= ax < a.dim() or a.shape[0] != L:
+        raise ValueError(f"field_sum: axis {axis} of {tuple(a.shape)}")
+    rest = a.shape[1:ax] + a.shape[ax + 1:]
+    if a.numel() == 0:
+        return torch.zeros((L,) + rest, dtype=torch.int32, device=a.device)
+    v, rows, n, rs, ls, es = sum_view(a, ax)
+    rows_fast = rows >= 32 and es != 1
+    chunk, chunks = sum_plan(rows, n, rows_fast)
+    out = torch.empty((L, rows), dtype=torch.int32, device=a.device)
+    partials, counters = sum_scratch(a, rows, chunks)
+    FIELD_SUM.launch(nat.ptr(v), nat.ptr(out), rows, n, rs, ls, es, chunk,
+                     chunks, int(rows_fast), partials, counters,
+                     field_words(spec), nat.stream(out), device=out.device)
+    return out.reshape((L,) + rest)

@@ -104,7 +104,7 @@ def interpolate(spec: FieldSpec, evals: torch.Tensor) -> torch.Tensor:
     n = evals.shape[1]
     terms = arith.mont_mul(spec, _vinv_limbs(spec, n, evals.device),
                            evals[:, None, :])
-    return arith.sum_limbs(spec, terms, -1, arith.mont_mul)
+    return arith.sum_limbs(spec, terms, -1)
 
 
 def horner(spec: FieldSpec, coeffs: torch.Tensor, x: torch.Tensor

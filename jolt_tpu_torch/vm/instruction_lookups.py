@@ -22,7 +22,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import _native as nat
+from ..field import arith
 from ..field import device as fd
+from ..field import kernels as fk
 from ..field.generic import DevF
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
@@ -191,9 +194,10 @@ def _primary_round_evals(pre: InstructionLookupsPreprocessing, eq, out, fl, e
                          ) -> torch.Tensor:
     """Round evaluations at t = 0..degree -> [16, degree + 1]
     (jolt_tpu's `_primary_round_evals_decomposed`, shrinking arrays): the
-    top variable is split into lo/hi halves, points t >= 2 extrapolate by
-    adding hi - lo, and each point sums eq_t * (sum_k f_t[k] * g_k(E_t) -
-    out_t) over the half-hypercube."""
+    top variable is split into lo/hi halves (views), points t >= 2
+    extrapolate by adding hi - lo (K10), and each point sums eq_t *
+    (sum_k f_t[k] * g_k(E_t) - out_t) over the half-hypercube (the
+    collations on K1 and K10, the finisher on K12)."""
     spec, C, M = pre.spec, pre.C, pre.M
     h = eq.shape[-1] // 2
     lo = [t[..., :h] for t in (eq, out, fl, e)]
@@ -214,9 +218,52 @@ def _primary_round_evals(pre: InstructionLookupsPreprocessing, eq, out, fl, e
             g = cls().combine_lookups(vals, C, M)
             term = fd.fmul(spec, f_t[:, k], g.limbs)
             inner = term if inner is None else fd.fadd(spec, inner, term)
-        total = fd.fmul(spec, eq_t, fd.fsub(spec, inner, out_t))
-        evals.append(fd.fsum(spec, total, axis=-1))
+        evals.append(primary_finish(spec, eq_t, out_t, inner))
     return torch.stack(evals, dim=1)
+
+
+# K12: the point's finisher, sum_i eq_t[i] * (inner[i] - out_t[i]), in one
+# launch (csrc/field_ops.cu `field_sum_kernel<1>`, on K11's sum)
+PRIMARY_FINISH = nat.CudaKernel(
+    "primary_finish", "field_ops", "jt_primary_finish",
+    [nat.vptr] * 4 + [nat.i64] * 9 + [nat.vptr] * 2 + [nat.u32p, nat.vptr],
+    "jolt_tpu/vm/instruction_lookups.py:268 _point_finish_jit (jax.jit)",
+    "field_sum_kernel<1>", 256)
+
+
+def primary_finish_plain(spec: FieldSpec, eq: torch.Tensor, out: torch.Tensor,
+                         inner: torch.Tensor) -> torch.Tensor:
+    """sum_i eq[i] * (inner[i] - out[i]) mod p over [16, h] -> [16]: fsum
+    (fmul(eq, fsub(inner, out))) in plain limb arithmetic (jolt_tpu's
+    `_point_finish_jit` with the mask's h the whole half)."""
+    return arith.sum_limbs(spec, arith.mont_mul(spec, eq, arith.sub(
+        spec, inner, out)), -1)
+
+
+def primary_finish(spec: FieldSpec, eq: torch.Tensor, out: torch.Tensor,
+                   inner: torch.Tensor) -> torch.Tensor:
+    """primary_finish_plain's function: one K12 launch on CUDA tensors
+    [16, h] (views with any limb and element strides go in as they are),
+    the plain version on CPU tensors."""
+    if eq.device.type == out.device.type == inner.device.type == "cpu":
+        return primary_finish_plain(spec, eq, out, inner)
+    nat.require_cuda("primary_finish", eq, out, inner)
+    if eq.dim() != 2 or eq.shape[0] != fd.L or out.shape != eq.shape or \
+            inner.shape != eq.shape:
+        raise ValueError(f"primary_finish: expected equal [16, h], got "
+                         f"{[tuple(t.shape) for t in (eq, out, inner)]}")
+    n = eq.shape[1]
+    res = torch.empty(fd.L, dtype=torch.int32, device=eq.device)
+    if n == 0:
+        return res.zero_()
+    chunk, chunks = fk.sum_plan(1, n, False)
+    partials, counters = fk.sum_scratch(eq, 1, chunks)
+    PRIMARY_FINISH.launch(
+        nat.ptr(eq), nat.ptr(out), nat.ptr(inner), nat.ptr(res), n,
+        eq.stride(0), eq.stride(1), out.stride(0), out.stride(1),
+        inner.stride(0), inner.stride(1), chunk, chunks, partials, counters,
+        fk.field_words(spec), nat.stream(res), device=res.device)
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ One warm-up prove and one unprofiled prove, then:
   1. one prove under torch.profiler (CPU and CUDA activities): wall time,
      the time the card spent in kernels (the union of their intervals),
      its idle share, device time by kernel name, and the summed device
-     time and launches of each of the port's kernels (K1-K7);
+     time and launches of each of the port's kernels (K1-K12);
   2. one prove under cProfile: host time by function (cumulative), which
      names the protocol phases (witness, commit, sumchecks, memory
      checking, openings) and the host work inside them (transcript, limb
@@ -43,6 +43,13 @@ enabled, empty span on the idle card (10,000 of them, each with its two
 `torch.cuda.synchronize()` calls and its profiler range), the spans one
 prove opens, and PAIRS pairs of proves in turns with the spans off and on
 (off, on, on, off, ...), each prove's seconds and the means.
+
+With --count-ops it counts instead, in one prove after the warm-up, the
+ATen ops dispatched to PyTorch (views included: each a host-issued call,
+most of them a device op; a torch.utils._python_dispatch mode counts
+them) and the port's kernel launches (`_native.launch_counts`): a count
+that does not need the profiler's read-back of every device event, which
+takes tens of minutes for a prove of millions of ops.
 
 With --replay-k2, the profile is K2's alone, in seconds rather than the
 full profile's minutes: the inputs of every K2 call of one prove are kept
@@ -128,6 +135,28 @@ def replay_k2(prove, card: str, tag: str) -> None:
                   flush=True)
 
 
+def count_ops(prove, nat, card: str, tag: str) -> None:
+    """ATen ops dispatched and kernel launches in one prove."""
+    import json
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    nat.reset_launch_counts()
+    with Count():
+        secs = prove()
+    launches = nat.launch_counts()
+    print(f"count-ops prove {tag}: {Count.ops} dispatched ATen ops (views "
+          f"included), {sum(launches.values())} kernel launches "
+          f"{json.dumps(launches)}; {secs:.3f} s with the counter on "
+          f"[{card}]", flush=True)
+
+
 def span_cost(prove, pairs: int, card: str, tag: str) -> None:
     """The spans' cost: an empty span's seconds, and proves in turns with
     the spans off and on."""
@@ -181,6 +210,8 @@ def main() -> None:
                     help="stop after the unprofiled prove (above)")
     ap.add_argument("--span-cost", type=int, default=0, metavar="PAIRS",
                     help="proves in turns with the spans off and on (above)")
+    ap.add_argument("--count-ops", action="store_true",
+                    help="count dispatched ops and launches (above)")
     ap.add_argument("--replay-k2", action="store_true",
                     help="profile K2's calls of one prove alone (above)")
     args = ap.parse_args()
@@ -247,6 +278,9 @@ def main() -> None:
         return
     if args.replay_k2:
         replay_k2(prove, card, tag)
+        return
+    if args.count_ops:
+        count_ops(prove, nat, card, tag)
         return
     print(f"unprofiled prove {tag}: {prove():.3f} s [{card}]", flush=True)
     if args.unprofiled_only:

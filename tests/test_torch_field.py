@@ -2,7 +2,11 @@
 
 The same limbs, made with numpy from a seed, go through jolt_tpu's XLA
 path on the CPU and through the port on the CPU (the kernels' plain
-versions).  Every comparison is of integer limbs: the tolerance is zero.
+versions), K10's and K11's (fadd, fsub, fneg, fsum) on strided halves,
+broadcast scalars and odd lengths among them.  Every comparison is of
+integer limbs: the tolerance is zero.  The CUDA wrappers' index math (the
+strides K1 and K10 read operands by, K11's moved axis and its cut into
+segments) is held against a Python model of the kernels' loads.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -187,3 +191,175 @@ def test_carry_and_borrow_routes_agree(kind, n):
         assert [sum(int(v) << (16 * i) for i, v in enumerate(o[:, j]))
                 for j in range(n)] == [v % (1 << 256) for v in value]
         assert borrow.tolist() == [int(v < 0) for v in value]
+
+
+# ---------------------------------------------------------------------------
+# K10 and K11 (fd.fadd, fsub, fneg, fsum): their plain versions against
+# jolt_tpu on views and odd lengths, and the CUDA wrappers' index math
+# ---------------------------------------------------------------------------
+
+def _halves(name, seed, m=3, n=10):
+    """The lo and hi halves of two [16, m, n] tensors along the last axis
+    (views whose rows are strided) as numpy and as torch views."""
+    jspec, tspec, a, b = _pair(name, (m, n), seed=seed)
+    h = n // 2
+    ta, tb = limbs_from_numpy(a), limbs_from_numpy(b)
+    return jspec, tspec, (a[..., :h], b[..., h:]), (ta[..., :h], tb[..., h:])
+
+
+@pytest.mark.parametrize("name", SPECS)
+@pytest.mark.parametrize("op", ["fadd", "fsub", "fneg"])
+def test_addsub_on_strided_halves(name, op):
+    """The lo half of one [16, 3, 10] tensor against the hi half of
+    another, as the bind and the primary round hand them to K10."""
+    jspec, tspec, (ja, jb), (ta, tb) = _halves(name, 6)
+    assert not ta.is_contiguous() and not tb.is_contiguous()
+    jf, tf = getattr(jfd, op), getattr(tfd, op)
+    if op == "fneg":
+        _same(jf(jspec, jnp.asarray(jb)), tf(tspec, tb))
+    else:
+        _same(jf(jspec, jnp.asarray(ja), jnp.asarray(jb)), tf(tspec, ta, tb))
+
+
+@pytest.mark.parametrize("name", SPECS)
+@pytest.mark.parametrize("op", ["fadd", "fsub"])
+def test_addsub_broadcast_scalar_on_either_side(name, op):
+    """A stride-0 constant [16, 1, 1] (DevF's coerced scalars) on the left
+    and on the right of a [16, 3, 5] half."""
+    jspec, tspec, (ja, _), (ta, _) = _halves(name, 7)
+    s = ja[:, 1:2, 2:3]
+    js = jnp.broadcast_to(jnp.asarray(s), ja.shape)
+    ts = limbs_from_numpy(np.ascontiguousarray(s))
+    jf, tf = getattr(jfd, op), getattr(tfd, op)
+    _same(jf(jspec, jnp.asarray(ja), js), tf(tspec, ta, ts))
+    _same(jf(jspec, js, jnp.asarray(ja)), tf(tspec, ts, ta))
+
+
+@pytest.mark.parametrize("name", SPECS)
+@pytest.mark.parametrize("n", [1, 3, 257])
+def test_fsum_lengths(name, n):
+    """fsum over lengths 1, 3 (odd: jolt_tpu's halving carries a tail) and
+    257 of a [16, 3, n] tensor, along its last axis and its first."""
+    jspec, tspec, a, _ = _pair(name, (3, n), seed=8)
+    a[:, 0, : min(n, 4)] = np.asarray(jspec.p_limbs, np.uint32)[:, None] - (
+        np.arange(16) == 0)[:, None]                     # p - 1: carries
+    for axis in (-1, 0):
+        _same(jfd.fsum(jspec, jnp.asarray(a), axis=axis),
+              tfd.fsum(tspec, limbs_from_numpy(a), axis))
+
+
+def _flat_value(flat: np.ndarray, at: int, ls: int) -> int:
+    return sum(int(flat[at + k * ls]) << (16 * k) for k in range(16))
+
+
+_VIEWS = {                      # view of a [16, 4, 6] tensor, broadcast to
+    "contiguous": (lambda t: t, (4, 6)),
+    "lo half": (lambda t: t[..., :3], (4, 3)),
+    "hi half": (lambda t: t[..., 3:], (4, 3)),
+    "a column": (lambda t: t[:, :, 1:2], (4, 6)),
+    "a row": (lambda t: t[:, 2:3, :], (4, 6)),
+    "a scalar": (lambda t: t[:, 1:2, 4:5], (4, 6)),
+    "a scalar, 3 axes": (lambda t: t[:, 1:2, 4:5, None], (2, 4, 5)),
+    "transposed": (lambda t: t.transpose(1, 2), (6, 4)),
+    "a plane": (lambda t: t[:, 1], (6,)),
+    "an element": (lambda t: t[:, 0, 0], ()),
+}
+
+
+@pytest.mark.parametrize("view", _VIEWS)
+def test_addsub_operand_strides_address_every_element(view):
+    """K1 and K10 read limb k of element (bb, i) of an operand at ptr + bb*bs +
+    i*es + k*ls: for each view the wrapper passes (halves, broadcasts,
+    planes, transposes), those addresses hold the broadcast operand's
+    limbs, element by element (a model of the kernel's loads)."""
+    base = torch.arange(16 * 4 * 6, dtype=torch.int32).reshape(16, 4, 6)
+    fn, logical = _VIEWS[view]
+    t = fn(base)
+    shape = torch.Size((16,) + logical)
+    n = shape.numel() // 16
+    s = shape[-1] if len(shape) > 1 else 1
+    src, bs, ls, es = tfk._operand("test", t, shape, n)
+    flat = torch.tensor([], dtype=torch.int32).set_(
+        src.untyped_storage()).numpy()
+    want = t.expand(shape).reshape(16, n)
+    for e in range(n):
+        bb, i = divmod(e, s)
+        at = src.storage_offset() + bb * bs + i * es
+        assert [int(flat[at + k * ls]) for k in range(16)] == \
+            want[:, e].tolist(), (view, e)
+    assert src.data_ptr() == t.data_ptr()              # no copy
+
+
+def _model_field_sum(v: torch.Tensor, rows, n, rs, ls, es, chunk, chunks,
+                     rows_fast, p) -> list[int]:
+    """K11's loops in Python: segment seg covers chunk c of one row (or of
+    32 rows with rows_fast); a chunk's sum goes to the row's output when
+    it is the only one, else to a partial that the row's last segment
+    sums.  Asserts that every term is read once."""
+    flat = torch.tensor([], dtype=torch.int32).set_(
+        v.untyped_storage()).numpy()
+    off = v.storage_offset()
+    groups = -(-rows // 32) if rows_fast else rows
+    seen, partial, out = set(), {}, [None] * rows
+    for seg in range(groups * chunks):
+        g, c = divmod(seg, chunks)
+        k0, k1 = c * chunk, min(c * chunk + chunk, n)
+        assert k0 < k1
+        rs_of = [g * 32 + j for j in range(32) if g * 32 + j < rows] \
+            if rows_fast else [g]
+        for r in rs_of:
+            total = 0
+            for k in range(k0, k1):
+                assert (r, k) not in seen
+                seen.add((r, k))
+                total += _flat_value(flat, off + r * rs + k * es, ls)
+            if chunks == 1:
+                out[r] = total % p
+            else:
+                partial[r, c] = total % p
+    assert len(seen) == rows * n
+    if chunks > 1:
+        out = [sum(partial[r, c] for c in range(chunks)) % p
+               for r in range(rows)]
+    return out
+
+
+@pytest.mark.parametrize("shape,axis", [((2, 300), -1), ((40, 9), 0),
+                                        ((3, 4, 5), 1), ((70, 2), -1),
+                                        ((1,), 0), ((33, 1), -1)])
+def test_field_sum_plan_covers_every_term(shape, axis):
+    """K11's wrapper math: the summed axis moved last as a view, its rows'
+    stride, the layout (lanes along a row or across rows) and sum_plan's
+    chunks; the model of the kernel's loops reads every term once and
+    gives the plain version's sums."""
+    tspec = SPECS["fr"][1]
+    rng = np.random.default_rng(len(shape) + shape[0])
+    a = _rand_field(rng, tspec.p, shape)
+    t = limbs_from_numpy(a)
+    v, rows, n, rs, ls, es = tfk.sum_view(
+        t, axis + 1 if axis >= 0 else axis + t.dim())
+    rows_fast = rows >= 32 and es != 1
+    for plan in (tfk.sum_plan(rows, n, rows_fast), (1, n), (n, 1)):
+        chunk, chunks = plan
+        assert (chunks - 1) * chunk < n <= chunks * chunk
+        got = _model_field_sum(v, rows, n, rs, ls, es, chunk, chunks,
+                               rows_fast, tspec.p)
+        want = tfd.unpack_ints(tfk.field_sum_plain(tspec, t, axis).numpy())
+        assert got == [int(w) for w in np.ravel(want)]
+
+
+@pytest.mark.parametrize("rows,n,rows_fast", [
+    (1, 1, False), (1, 127, False), (1, 1 << 15, False), (1, 1 << 20, False),
+    (55, 1 << 15, False), (1 << 15, 110, True), (1 << 16, 55, True),
+    (31, 4, False), (4224, 3, False), (4300, 2, True), (1 << 20, 1, True)])
+def test_sum_plan_bounds(rows, n, rows_fast):
+    """sum_plan's cut covers each row with non-empty chunks, and a row is
+    cut only while its tickets fit the counters (SUM_WAVE_WARPS words)."""
+    chunk, chunks = tfk.sum_plan(rows, n, rows_fast)
+    assert chunk >= 1 and (chunks - 1) * chunk < n <= chunks * chunk
+    groups = -(-rows // 32) if rows_fast else rows
+    if chunks > 1:
+        assert groups < tfk.SUM_WAVE_WARPS
+        assert groups * chunks <= 2 * tfk.SUM_WAVE_WARPS
+    if not rows_fast:
+        assert chunk % 32 == 0 or chunks == 1

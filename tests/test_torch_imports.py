@@ -8,8 +8,9 @@ to the CPU.
   jax nor any jolt_tpu module nor elftools;
 - no source of the port, and not chip_smoke.py, imports them;
 - an entry point called with no CUDA card and no device="cpu" raises;
-- a kernel wrapper handed tensors that are not on the CPU (K1-K7, and
-  the device Fiat-Shamir's K8 and K9) launches its
+- a kernel wrapper handed tensors that are not on the CPU (K1-K7, the
+  device Fiat-Shamir's K8 and K9, and the field programs K10-K12, also
+  through fd.fadd, fsub, fneg and fsum) launches its
   kernel or raises: it never runs its plain version instead, and neither
   do the windowed MSM, Hyrax, Zeromorph, the grand-product commit or the
   Quarks product tree.
@@ -34,6 +35,7 @@ from jolt_tpu_torch.curve import device as cd
 from jolt_tpu_torch.curve import kernels as ck
 from jolt_tpu_torch.curve.bn254 import G1Affine
 from jolt_tpu_torch.evm import fixtures as evm_fixtures
+from jolt_tpu_torch.field import device as fd
 from jolt_tpu_torch.field import kernels as fk
 from jolt_tpu_torch.field.spec import fr_spec
 from jolt_tpu_torch.instructions import XorInstruction
@@ -42,6 +44,7 @@ from jolt_tpu_torch.parallel import sharding
 from jolt_tpu_torch.subprotocols import fs_device as fsd
 from jolt_tpu_torch.subprotocols.grand_product_quarks import QuarkGrandProduct
 from jolt_tpu_torch.utils import keccak_device as kd
+from jolt_tpu_torch.vm import instruction_lookups as il
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "jolt_tpu_torch"
@@ -172,6 +175,14 @@ _WRAPPERS = {
     "fs_round": lambda: fsd.fs_round(
         fr_spec(), _meta(16, 3), _meta(16),
         torch.zeros(9, dtype=torch.int64, device="meta"), 3, True),
+    "field_addsub": lambda: fk.field_addsub(fr_spec(), _meta(16, 8),
+                                            _meta(16, 1), fk.SUB),
+    "fd.fadd": lambda: fd.fadd(fr_spec(), _meta(16, 8), _meta(16, 8)),
+    "fd.fneg": lambda: fd.fneg(fr_spec(), _meta(16, 8)),
+    "field_sum": lambda: fk.field_sum(fr_spec(), _meta(16, 4, 8), 0),
+    "fd.fsum": lambda: fd.fsum(fr_spec(), _meta(16, 8), -1),
+    "primary_finish": lambda: il.primary_finish(
+        fr_spec(), _meta(16, 8), _meta(16, 8), _meta(16, 8)),
 }
 
 

@@ -129,8 +129,9 @@ def test_launch_constants_match_the_sources():
     keeps them, agree with the sources."""
     from jolt_tpu_torch.subprotocols import fs_device  # noqa: F401 (K9)
     from jolt_tpu_torch.utils import keccak_device  # noqa: F401 (K8)
+    from jolt_tpu_torch.vm import instruction_lookups  # noqa: F401 (K12)
     csrc = Path(nat.__file__).resolve().parent / "csrc"
-    assert len(nat.KERNELS) == 9
+    assert len(nat.KERNELS) == 12
     for k in nat.KERNELS:
         src = (csrc / f"{k.source}.cu").read_text()
         fn = k.function.split("<")[0]

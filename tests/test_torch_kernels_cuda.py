@@ -11,7 +11,11 @@ transcript events) against its plain version and the host transcript over
 chained appends and challenges, at a chained GKR layer's merged list,
 past its shared memory and with empty segments, and K9 (the device
 Fiat-Shamir round) at every degree it takes; K3 taking its challenge from
-the card.  Every
+the card; K10 (the modular add, subtract, negate) at 1 to 2^20 elements,
+on strided halves and broadcasts and edge residues, refusing int64; K11
+(the modular sum) at lengths 1 to 2^20 along each axis and over many
+rows, twice (its tickets reset); K12 (the primary round's finisher) at h
+= 1 to 2^15; each call of K10-K12 one launch.  Every
 comparison is of integer
 limbs or transcript bytes: the tolerance is zero.  This file imports nothing of JAX, so on a
 machine without it run it as
@@ -510,3 +514,97 @@ def test_gp_pair_bind_takes_a_challenge_on_the_card(dev):
     _equal(_launched(fk.GP_PAIR_BIND,
                      lambda: fk.gp_pair_bind(spec, l, r, eq, rc)),
            fk.gp_pair_bind_plain(spec, l, r, eq, rc))
+
+
+# ---------------------------------------------------------------------------
+# K10, K11, K12: the modular add/sub/neg, the modular sum, and the primary
+# sumcheck's point finisher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", SPECS)
+@pytest.mark.parametrize("n", [1, 257, 1 << 20])
+@pytest.mark.parametrize("op", [fk.ADD, fk.SUB, fk.NEG])
+def test_field_addsub(dev, name, n, op):
+    """Contiguous operands, edge residues, and a = b (a - a = 0)."""
+    spec = SPECS[name]
+    a, b = _edge(spec, dev, n, seed=1), _edge(spec, dev, n, seed=2)
+    for x, y in ((a, b), (a, a), (b, a)):
+        _equal(_launched(fk.FIELD_ADDSUB,
+                         lambda: fk.field_addsub(spec, x, y, op)),
+               fk.field_addsub_plain(spec, x, y, op))
+
+
+@pytest.mark.parametrize("m,n", [(3, 2), (55, 1 << 10), (7, 1 << 16)])
+def test_field_addsub_on_strided_halves_and_broadcasts(dev, m, n):
+    """The round split's halves of [16, m, n] (no copy), a stride-0
+    scalar on either side, a column broadcast along the last axis, and
+    fd.fadd/fsub/fneg on the same views: one launch each."""
+    spec = fr_spec()
+    t, u = _edge(spec, dev, m, n, seed=3), _edge(spec, dev, m, n, seed=4)
+    h = n // 2
+    lo, hi = t[..., :h], u[..., h:]
+    s = u[:, 1:2, 0:1]
+    col = t[:, :, :1]
+    for x, y in ((lo, hi), (hi, lo), (lo, s), (s, hi), (col, hi), (hi, col)):
+        for op in (fk.ADD, fk.SUB):
+            _equal(_launched(fk.FIELD_ADDSUB,
+                             lambda: fk.field_addsub(spec, x, y, op)),
+                   fk.field_addsub_plain(spec, x, y, op))
+    for f, args in ((fd.fadd, (lo, hi)), (fd.fsub, (lo, hi)), (fd.fneg, (hi,))):
+        _equal(_launched(fk.FIELD_ADDSUB, lambda: f(spec, *args)),
+               fk.field_addsub_plain(spec, *((hi, hi) if f is fd.fneg
+                                             else args),
+                                     {fd.fadd: fk.ADD, fd.fsub: fk.SUB,
+                                      fd.fneg: fk.NEG}[f]))
+
+
+def test_field_addsub_refuses_int64(dev):
+    spec = fr_spec()
+    a = _rand(spec, dev, 8)
+    with pytest.raises(TypeError, match="int32"):
+        fk.field_addsub(spec, a.long(), a, fk.ADD)
+    with pytest.raises(TypeError, match="int32"):
+        fd.fsum(spec, a.long(), -1)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 1023, 1 << 15, 1 << 20])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_field_sum(dev, n, axis):
+    """Lengths 1 to 2^20 along each axis of [16, n, 3] / [16, 3, n] (the
+    summed axis has element stride 3 or 1: lanes along the rows), edge
+    residues; called twice, so a row's ticket is reset."""
+    spec = fr_spec()
+    shape = (n, 3) if axis == 0 else (3, n)
+    a = _edge(spec, dev, *shape, seed=n)
+    want = fk.field_sum_plain(spec, a, axis)
+    for _ in range(2):
+        _equal(_launched(fk.FIELD_SUM, lambda: fd.fsum(spec, a, axis)), want)
+
+
+@pytest.mark.parametrize("shape,axis", [((110, 1 << 15), 0),
+                                        ((55, 1 << 16), 0),
+                                        ((64, 3, 5), 1), ((40, 9), -1),
+                                        ((1 << 16, 2), -1)])
+def test_field_sum_rows(dev, shape, axis):
+    """Many rows: the leading axis of [16, B, h] (lanes across rows), a
+    middle axis (the rest made contiguous), many short rows."""
+    spec = fr_spec()
+    a = _edge(spec, dev, *shape, seed=len(shape))
+    _equal(_launched(fk.FIELD_SUM, lambda: fd.fsum(spec, a, axis)),
+           fk.field_sum_plain(spec, a, axis))
+
+
+@pytest.mark.parametrize("h", [1, 5, 1 << 15])
+def test_primary_finish(dev, h):
+    """K12 at h = 1 and 2^15 (the primary round's first), on the lo halves
+    of [16, 2h] tensors as the round hands them over; twice."""
+    from jolt_tpu_torch.vm import instruction_lookups as il
+    spec = fr_spec()
+    eq2, out2 = _edge(spec, dev, 2 * h, seed=1), _edge(spec, dev, 2 * h, seed=2)
+    inner = _edge(spec, dev, h, seed=3)
+    eq, out = eq2[:, :h], out2[:, :h]
+    want = il.primary_finish_plain(spec, eq, out, inner)
+    for _ in range(2):
+        _equal(_launched(il.PRIMARY_FINISH,
+                         lambda: il.primary_finish(spec, eq, out, inner)),
+               want)

@@ -1,0 +1,148 @@
+"""The primary sumcheck's round on the port's CPU path against jolt_tpu.
+
+- K12's plain version, `primary_finish_plain` (sum_i eq[i] * (inner[i] -
+  out[i]) over a round's half), against jolt_tpu's `_point_finish_jit`
+  with its mask over the whole half, on strided halves as the round hands
+  them over;
+- `_primary_round_evals` (the round split, the extrapolation on K10, the
+  collations, K12 at each point) against jolt_tpu's
+  `_primary_round_evals_decomposed`, on a preprocessing of five
+  instructions of the narrow VM at M = 2^8;
+- the collations' constants (DevF's coerced ints): a second pass of the
+  29 collations of rv32i_vm() uploads none, and every result equals the
+  pass that uploaded each constant afresh.
+Inputs are random field elements from numpy seeds; the tolerance is zero.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jolt_tpu.field import device as jfd
+from jolt_tpu.field import fr_spec as jfr_spec
+from jolt_tpu.instructions import RV32I_INSTRUCTIONS as J_INSTRUCTIONS
+from jolt_tpu.vm import instruction_lookups as jil
+from jolt_tpu.vm.rv32i_vm import RV32I_SUBTABLES as J_SUBTABLES
+from jolt_tpu_torch.convert import limbs_from_numpy, limbs_to_numpy
+from jolt_tpu_torch.field import device as fd
+from jolt_tpu_torch.field import generic
+from jolt_tpu_torch.field.generic import DevF
+from jolt_tpu_torch.field.spec import fr_spec
+from jolt_tpu_torch.instructions import RV32I_INSTRUCTIONS
+from jolt_tpu_torch.vm import instruction_lookups as il
+from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES
+
+FR, JFR = fr_spec(), jfr_spec()
+C, M_NARROW = 4, 1 << 8
+# five of the narrow VM's instructions (tests/test_torch_rv32i.py's
+# narrow_program runs 23): sums, bitwise concatenations, a signed and an
+# unsigned comparison, and a shift, so that their collations differ
+ROUND_INSTRUCTIONS = ("add", "xor", "slt", "sltu", "sll")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rand(rng, shape) -> np.ndarray:
+    """Canonical limbs uint32[16, *shape] of random residues mod FR.p (their
+    Montgomery reading is as random), with 0 and p - 1 among them."""
+    n = int(np.prod(shape))
+    words = rng.integers(0, 1 << 64, size=(n, 4), dtype=np.uint64)
+    vals = [sum(int(w) << (64 * k) for k, w in enumerate(row)) % FR.p
+            for row in words]
+    vals[:2] = [0, FR.p - 1][:n]
+    return jfd.pack_ints(vals, shape)
+
+
+@pytest.mark.parametrize("H", [1, 8, 64])
+def test_primary_finish_plain_matches_point_finish(H):
+    """eq, out: the lo halves of [16, 2H] tensors (strided views); inner
+    a full [16, H] tensor; jolt_tpu's mask covers all H entries."""
+    rng = np.random.default_rng(H)
+    eq2, out2, inner = _rand(rng, (2 * H,)), _rand(rng, (2 * H,)), \
+        _rand(rng, (H,))
+    want = jil._point_finish_jit(JFR)(jnp.asarray(eq2[:, :H]),
+                                      jnp.asarray(out2[:, :H]),
+                                      jnp.asarray(inner), np.int32(H))
+    teq, tout = limbs_from_numpy(eq2)[:, :H], limbs_from_numpy(out2)[:, :H]
+    got = il.primary_finish_plain(FR, teq, tout, limbs_from_numpy(inner))
+    assert (limbs_to_numpy(got) == np.asarray(want)).all()
+    assert (limbs_to_numpy(il.primary_finish(FR, teq, tout, limbs_from_numpy(
+        inner))) == np.asarray(want)).all()
+
+
+def _classes(instructions):
+    by = {c.name: c for c in instructions}
+    return [by[name] for name in ROUND_INSTRUCTIONS]
+
+
+def test_primary_round_evals_match_decomposed():
+    """One round at H = 4 (8 hypercube points) on random eq, out, flags
+    and memories: [16, degree + 1] equal, point for point."""
+    pre = il.InstructionLookupsPreprocessing(
+        _classes(RV32I_INSTRUCTIONS), RV32I_SUBTABLES, C, M_NARROW, "cpu", FR)
+    jpre = jil.InstructionLookupsPreprocessing(
+        _classes(J_INSTRUCTIONS), J_SUBTABLES, C, M_NARROW, JFR)
+    assert pre.instruction_to_memory_indices == \
+        jpre.instruction_to_memory_indices
+    H = 4
+    rng = np.random.default_rng(12)
+    eq, out = _rand(rng, (2 * H,)), _rand(rng, (2 * H,))
+    fl = _rand(rng, (pre.num_instructions, 2 * H))
+    e = _rand(rng, (pre.num_memories, 2 * H))
+    want = jil._primary_round_evals_decomposed(
+        JFR, jpre.meta_key(), jpre.sumcheck_degree, *map(jnp.asarray,
+                                                         (eq, out, fl, e)), H)
+    got = il._primary_round_evals(pre, *map(limbs_from_numpy,
+                                            (eq, out, fl, e)))
+    assert got.shape == (16, pre.sumcheck_degree + 1)
+    assert (limbs_to_numpy(got) == np.asarray(want)).all()
+
+
+def _collations(vals_of):
+    """Each of rv32i_vm()'s 29 instructions' collation at C = 4, M = 2^16
+    on DevF tensors [16, 3] (vals_of(k, j): memory j's values)."""
+    out = []
+    for k, cls in enumerate(RV32I_INSTRUCTIONS):
+        n_mem = sum(len(idx) for _, idx in cls().subtables(C, 1 << 16))
+        vals = [DevF(vals_of(k, j), FR) for j in range(n_mem)]
+        out.append(cls().combine_lookups(vals, C, 1 << 16).limbs)
+    return out
+
+
+def test_collation_constants_upload_once(monkeypatch):
+    """The 29 collations with every constant uploaded afresh, then twice
+    through DevF's cache: the first cached pass uploads each distinct
+    constant once, the second none, and all three agree bit for bit."""
+    assert len(RV32I_INSTRUCTIONS) == 29
+    rng = np.random.default_rng(29)
+    pool = limbs_from_numpy(_rand(rng, (64, 3)))
+    vals_of = lambda k, j: pool[:, (5 * k + j) % 64]      # noqa: E731
+    uploads = []
+    scalar_to_device = fd.scalar_to_device
+
+    def counted(spec, x, device):
+        uploads.append(x)
+        return scalar_to_device(spec, x, device)
+
+    monkeypatch.setattr(fd, "scalar_to_device", counted)
+    monkeypatch.setattr(generic, "const_limbs", counted)   # no cache
+    fresh = _collations(vals_of)
+    fresh_uploads = list(uploads)
+    monkeypatch.undo()
+    monkeypatch.setattr(fd, "scalar_to_device", counted)
+    generic.const_limbs.cache_clear()
+    uploads.clear()
+    first = _collations(vals_of)
+    assert sorted(uploads) == sorted(set(fresh_uploads))
+    assert len(fresh_uploads) > len(uploads)
+    uploads.clear()
+    second = _collations(vals_of)
+    assert uploads == []
+    for a, b, c in zip(fresh, first, second):
+        assert torch.equal(a, b) and torch.equal(b, c)
