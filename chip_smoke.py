@@ -33,9 +33,12 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      [16, 55, 2^15] views of [16, 55, 2^16], and on a broadcast scalar,
      edge residues and a = b, K11 (the modular sum) over 2^23 terms (the
      sha2-chain prove's largest sum) and 2^20, over the leading axis of
-     [16, 110, 2^15] (a lane per row) and at lengths 1 and 3, and K12 (the
-     primary round's point finisher) at h = 2^15, and each of their
-     wrappers' host time per call;
+     [16, 110, 2^15] (a lane per row) and at lengths 1 and 3, K12 (the
+     primary round's point finisher) at h = 2^15, and K13 (rv32i_vm()'s
+     29 collations and their sum at one point) on the lo halves of
+     [16, 55, 2^16] and [16, 29, 2^16] (h = 2^15), the hi halves, a
+     contiguous t >= 2 point, h = 1 and 2, and edge residues, and each of
+     their wrappers' host time per call;
   3. the main path begins (launch counts set to 0): HyperKZG setup of the
      2^20-point SRS, generated on the card; its first 2^17 points must equal
      fixtures/srs/srs_131072_6a6f6c74.npz bit for bit;
@@ -66,7 +69,7 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      sha2-chain(13) on rv32i_vm() (29 instructions, 26 subtables, C = 4,
      M = 2^16) with the input 0x05 x 32, traced to 62,413 steps, padded to
      T = 2^16, HyperKZG from the SRS fixture, as phase 6: one timed prove
-     (K1-K5, K10-K12 must have launched; the largest call of each kernel,
+     (K1-K5, K10-K13 must have launched; the largest call of each kernel,
      and of K2 and K3 at each batch size, replayed against the plain
      version),
      accept, tamper rejected, timed verify; the guest's 32
@@ -77,7 +80,9 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      state_history must equal the first prove's event for event, and both
      proves' seconds are printed, with K8's and K9's launches in the
      first prove and their summed device ms (each shape's calls times its
-     kernel's time on the card alone at that shape).  The first
+     kernel's time on the card alone at that shape), and the first
+     prove's launches of K1, K10 and K13 and of all kernels, and each
+     kernel's calls in it with the sum of their bounds.  The first
      prove runs with the profiling spans on (utils/profiling.py; each
      syncs the card on entry and exit): their table is printed, and each
      of the seven top-level prove spans (witness_generation,
@@ -181,9 +186,9 @@ and prints the compiler and the libraries' paths.  Then a {"kernels":
 {...}}.  Imports nothing of JAX or jolt_tpu.
 K7 (jac_double) lies on no VM or Surge path (see csrc/point.cu): phase 2
 holds it against its plain version, and those paths' launch checks exempt
-it; phase 11's Hyrax commit launches it.  K12 (primary_finish) lies on
-the VM paths, not on Surge's (phase 4 exempts it); the kernels line's
-`launches` of K10-K12, the field programs' slice, are phase 8's
+it; phase 11's Hyrax commit launches it.  K12 (primary_finish) and K13
+(collate) lie on the VM paths, not on Surge's (phase 4 exempts them); the
+kernels line's `launches` of K10-K13, the field programs, are phase 8's
 sha2-chain(13) path (setup and the prove).  Phases 3-10, 12 (the quark
 path) and 13-15 run with device Fiat-Shamir, the default on the card, so
 K8 and K9 launch on them.
@@ -240,9 +245,13 @@ OFF_PATH = {"jac_double": "no VM or Surge prove path of either package "
             "launches jac_double_pallas (K7); phase 11's Hyrax commit does "
             "(the windowed MSM's Horner doublings)"}
 OFF_SURGE = {"primary_finish": "the Jolt VM's primary sumcheck finisher "
-             "(K12); Surge's primary sumcheck runs subprotocols/sumcheck.py"}
-FIELD_KERNELS = ("field_addsub", "field_sum", "primary_finish")   # K10-K12:
-#   their kernels line's launches are phase 8's path
+             "(K12); Surge's primary sumcheck runs subprotocols/sumcheck.py",
+             "collate": "the Jolt VM's primary sumcheck collations (K13); "
+             "Surge's primary sumcheck runs `combine_with_eq` through "
+             "`Sumcheck::prove_arbitrary`"}
+FIELD_KERNELS = ("field_addsub", "field_sum", "primary_finish",
+                 "collate")     # K10-K13: their kernels line's launches
+#   are phase 8's path
 ADDSUB_OPS = 25                    # 32-bit operations of one modular add
 #   or subtract (field.cuh add_mod, sub_mod): 8-word add (subtract), the
 #   8-word conditional subtraction (addition) with its borrow, 8 selects
@@ -332,8 +341,10 @@ def fs_chain_levels(name: str, args) -> tuple[int, int]:
 
 def work(name: str, args) -> tuple[int, int]:
     """(bytes, Montgomery products) that one call of kernel `name` needs:
-    each input read once and each output written once (int32 limbs), and
-    the products of the function itself: K2 5B + 3 per pair of B circuits,
+    each input read once and each output written once (int32 limbs; K13
+    reads the columns its program reads), and the products of the
+    function itself (K13: its program's, per element): K2 5B + 3 per pair
+    of B circuits,
     K3 2B + 1, K5 12 per add (RCB16 Alg. 7), K6 16 (an add; the doubling
     and infinity lanes of phase 2 are 2^-14 of its lanes), K7 7
     (dbl-2009-l); K8 and K9 as fs_work (their Keccak operations are added
@@ -353,6 +364,12 @@ def work(name: str, args) -> tuple[int, int]:
     if name == "primary_finish":
         _, eq, out, inner = args
         return tb(eq, out, inner) + 4 * 16, eq.shape[1]
+    if name == "collate":
+        from jolt_tpu_torch.vm import collation
+        pre, e_t, _ = args
+        prog, h = collation.program(pre), e_t.shape[-1]
+        return (4 * 16 * h * (len(prog.columns) + prog.n_flags + 1),
+                prog.products * h)
     if name == "mont_mul":
         import torch
         _, a, b = args
@@ -374,9 +391,10 @@ def work(name: str, args) -> tuple[int, int]:
 
 
 def field_adds(name: str, args) -> int:
-    """Modular adds and subtracts of one K10, K11 or K12 call (ADDSUB_OPS
-    32-bit operations each): an add an element; n - 1 a sum of n terms;
-    a subtract and an add a finisher's term."""
+    """Modular adds and subtracts of one K10, K11, K12 or K13 call
+    (ADDSUB_OPS 32-bit operations each): an add an element; n - 1 a sum
+    of n terms; a subtract and an add a finisher's term; K13's program's
+    adds and subtracts per element."""
     if name == "field_addsub":
         import torch
         return math.prod(torch.broadcast_shapes(args[1].shape,
@@ -387,6 +405,9 @@ def field_adds(name: str, args) -> int:
         return a.numel() // 16 // n * (n - 1)
     if name == "primary_finish":
         return 2 * args[1].shape[1]
+    if name == "collate":
+        from jolt_tpu_torch.vm import collation
+        return collation.program(args[0]).adds * args[1].shape[-1]
     return 0
 
 
@@ -535,7 +556,8 @@ def main() -> None:
     from jolt_tpu_torch.field import kernels as fk
     from jolt_tpu_torch.field.host import FElt
     from jolt_tpu_torch.field.spec import FieldSpec, fq_spec, fr_spec
-    from jolt_tpu_torch.instructions import XorInstruction
+    from jolt_tpu_torch.instructions import (RV32I_INSTRUCTIONS,
+                                             XorInstruction)
     from jolt_tpu_torch.parallel import sharding as sh
     from jolt_tpu_torch.lasso import (SurgePreprocessing, generate_witness,
                                       surge_prove, surge_verify)
@@ -575,8 +597,9 @@ def main() -> None:
                                           sha3_chain_program)
     from jolt_tpu_torch.vm import fixtures as fx
     from jolt_tpu_torch.vm.host import fibonacci_program, trace_program
+    from jolt_tpu_torch.vm import collation
     from jolt_tpu_torch.vm import instruction_lookups as il
-    from jolt_tpu_torch.vm.rv32i_vm import rv32i_vm
+    from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES, rv32i_vm
 
     dev = torch.device("cuda")
     FR, FQ = fr_spec(), fq_spec()
@@ -697,10 +720,23 @@ def main() -> None:
         "fs_round": (fsd.fs_round, fsd.fs_round_plain),
         "field_addsub": (fk.field_addsub, fk.field_addsub_plain),
         "field_sum": (fk.field_sum, fk.field_sum_plain),
-        "primary_finish": (il.primary_finish, il.primary_finish_plain)}
+        "primary_finish": (il.primary_finish, il.primary_finish_plain),
+        "collate": (collation.collate, collation.collate_plain)}
     results = {}                    # {kernel: {phase: row}}
     more = {}                       # {kernel: [rows at further shapes]}
     launch = {}                     # the launch floor, measured with K8
+
+    def bounds(name, args):
+        """(bytes, 32-bit operations, bytes bound ms, operations bound ms)
+        of one call of kernel `name`: work's bytes and products, the
+        Keccak's and the modular adds' operations besides."""
+        nbytes, products = work(name, args)
+        ops = products * MULS_PER_PRODUCT
+        if name in FS_KERNELS:          # and the Keccak's 32-bit operations
+            ops += fs_work(name, args)[2] * KECCAK_OPS
+        ops += field_adds(name, args) * ADDSUB_OPS
+        return (nbytes, ops, nbytes / HBM_BYTES_PER_S * 1e3,
+                ops / imad_rate * 1e3)
 
     def compare(phase, name, shape, args, record=True):
         wrapper, plain = KERNEL[name]
@@ -715,13 +751,7 @@ def main() -> None:
         del got, want
         kernel_ms = event_ms(lambda: wrapper(*args), 10)
         plain_ms = event_ms(lambda: plain(*args), 1, warm=True)
-        nbytes, products = work(name, args)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        muls = products * MULS_PER_PRODUCT
-        if name in FS_KERNELS:          # and the Keccak's 32-bit operations
-            muls += fs_work(name, args)[2] * KECCAK_OPS
-        muls += field_adds(name, args) * ADDSUB_OPS
-        ops_ms = muls / imad_rate * 1e3
+        nbytes, muls, bytes_ms, ops_ms = bounds(name, args)
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         print(f"{phase}: {name} shape={shape} kernel_ms={kernel_ms:.4f} "
@@ -973,6 +1003,36 @@ def main() -> None:
     compare("phase 2", "primary_finish", "[16,2^15] x 3 edge residues",
             (FR, ed16[:, :h16], ed16[:, h16:], edge_fe(FR, h16)),
             record=False)
+    # K13 at the first round's points on rv32i_vm()'s preprocessing (29
+    # instructions, 55 memories): t = 0 and 1 the lo and hi halves of E
+    # [16, 55, 2^16] and flags [16, 29, 2^16] (views), t >= 2 contiguous
+    # (K10's outputs), the last rounds' h = 2 and 1, edge residues
+    pre13 = il.InstructionLookupsPreprocessing(
+        RV32I_INSTRUCTIONS, RV32I_SUBTABLES, 4, 1 << 16, dev, FR)
+    prog13 = collation.program(pre13)
+    print(f"phase 2: collate's program for rv32i_vm(): {len(prog13.rows)} "
+          f"rows, {prog13.products} Montgomery products and {prog13.adds} "
+          f"adds or subtracts an element, {len(prog13.consts)} constants, "
+          f"{prog13.n_slots} slots, {len(prog13.columns)} memories and "
+          f"{prog13.n_flags} flags read", flush=True)
+    f16 = rand_fe(FR, 29, 2 * h16)
+    compare("phase 2", "collate", "E [16,55,2^15], flags [16,29,2^15]: lo "
+            "halves of [16,55,2^16], [16,29,2^16]",
+            (pre13, e16[..., :h16], f16[..., :h16]))
+    compare("phase 2", "collate", "hi halves of [16,55,2^16], "
+            "[16,29,2^16]", (pre13, e16[..., h16:], f16[..., h16:]),
+            record=False)
+    compare("phase 2", "collate", "[16,55,2^15], [16,29,2^15] contiguous "
+            "(t >= 2)", (pre13, rand_fe(FR, 55, h16), rand_fe(FR, 29, h16)),
+            record=False)
+    for h13 in (2, 1):
+        e13, f13 = edge_fe(FR, 55, 2 * h13), edge_fe(FR, 29, 2 * h13)
+        compare("phase 2", "collate", f"h = {h13}: lo halves of "
+                f"[16,55,{2 * h13}], [16,29,{2 * h13}] edge residues",
+                (pre13, e13[..., :h13], f13[..., :h13]), record=False)
+    compare("phase 2", "collate", "[16,55,2^12], [16,29,2^12] edge "
+            "residues", (pre13, edge_fe(FR, 55, 1 << 12),
+                         edge_fe(FR, 29, 1 << 12)), record=False)
     # each wrapper's host time per call (enqueue only, at a size whose
     # kernel is shorter than its wrapper), as the primary round calls them
     sm16 = rand_fe(FR, 55, 128)
@@ -981,7 +1041,8 @@ def main() -> None:
             ("field_addsub", (FR, sm16[:, 0, :64], one16[:, 0], fk.SUB)),
             ("field_sum", (FR, sm16[:, 0], -1)),
             ("primary_finish", (FR, eq16[:, :h16], out16[:, :h16], eq16[
-                :, h16:]))):
+                :, h16:])),
+            ("collate", (pre13, e16[..., :64], f16[..., :64]))):
         fn = KERNEL[name][0]
         fn(*args)
         torch.cuda.synchronize()
@@ -995,7 +1056,7 @@ def main() -> None:
               f"wrapper's enqueue, no sync; " + " x ".join(
                   str(list(t.shape)) for t in args[1:]
                   if isinstance(t, torch.Tensor)) + ")", flush=True)
-    del e16, lo16, hi16, ed16, ee16, eq16, out16, sm16
+    del e16, lo16, hi16, ed16, ee16, eq16, out16, sm16, f16, pre13
     torch.cuda.empty_cache()
 
     phase_done("phase 2")
@@ -1101,7 +1162,8 @@ def main() -> None:
                                    "field_addsub", "field_sum")
                     else kd if name == "transcript_events"
                     else fsd if name == "fs_round"
-                    else il if name == "primary_finish" else cd)
+                    else il if name in ("primary_finish", "collate")
+                    else cd)
              for name in KERNEL}
 
     def tensors(x):
@@ -1125,11 +1187,12 @@ def main() -> None:
             return tuple(map(tuple, args[3])), args[2] is None
         return args[4], args[5], args[1].shape[1]
 
-    def start_recording(by_batch, fs_calls=None):
+    def start_recording(by_batch, fs_calls=None, bound_sums=None):
         """Wrap each kernel's wrapper at its sites; returns the dict that
         the wrapped calls fill with the inputs of the largest calls.  With
         `fs_calls`, K8's and K9's calls are also counted by shape there,
-        with a copy of each shape's first inputs."""
+        with a copy of each shape's first inputs; with `bound_sums`, each
+        kernel's calls and the sum of their bounds (ms) are kept there."""
         largest = {}
 
         def keep_largest(name, fn):
@@ -1144,6 +1207,10 @@ def main() -> None:
                     shape = (name, fs_shape(name, args))
                     count, first = fs_calls.get(shape, (0, None))
                     fs_calls[shape] = (count + 1, first or copy(args))
+                if bound_sums is not None and ts[0].is_cuda:
+                    rec = bound_sums.setdefault(name, [0, 0.0])
+                    rec[0] += 1
+                    rec[1] += max(bounds(name, args)[2:])
                 return fn(*args)
             return wrapped
 
@@ -1228,7 +1295,8 @@ def main() -> None:
               f"bytecode rows) in {trace_s:.2f} s, padded to T = 2^"
               f"{T.bit_length() - 1}", flush=True)
         fs_calls = {} if host_fs else None
-        largest = start_recording(by_batch, fs_calls)
+        bound_sums = {} if host_fs else None
+        largest = start_recording(by_batch, fs_calls, bound_sums)
         nat.reset_launch_counts()
         t0 = time.perf_counter()
         srs_len = vm.required_srs_len(io, steps, rows)
@@ -1239,6 +1307,8 @@ def main() -> None:
         setup_counts = nat.launch_counts()
         if fs_calls:
             fs_calls.clear()            # the prove's calls alone
+        if bound_sums:
+            bound_sums.clear()
         torch.cuda.reset_peak_memory_stats()
         profiling.reset()
         profiling.enable(spans)
@@ -1257,6 +1327,13 @@ def main() -> None:
         print(f"{phase}: HyperKZG setup ({srs_len} points) + preprocessing "
               f"{setup_v:.3f} s; main-path launches (setup + the prove) "
               f"{json.dumps(counts)}", flush=True)
+        if bound_sums is not None:
+            print(f"{phase}: each kernel's calls in the {label} prove and the "
+                  f"sum of their bounds (the larger of bytes and operations "
+                  f"per call) " + json.dumps({
+                      name: {"calls": c, "bound_ms": round(b, 4),
+                             "bound_us_per_call": round(1e3 * b / c, 4)}
+                      for name, (c, b) in bound_sums.items()}), flush=True)
         check_and_replay(phase, label, counts, largest)
         if fs_calls is not None:
             fs_device_ms(phase, label, fs_calls, prove_counts)
@@ -1390,6 +1467,11 @@ def main() -> None:
         "phase 8", f"sha2-chain({SHA2_ITERS})", rv32i_vm(),
         sha2_chain_program(SHA2_ITERS), SHA2_STEPS, SHA2_T, by_batch=True,
         spans=True, host_fs=True, inputs=cli.SHA2_INPUT)
+    print(f"phase 8: the sha2-chain({SHA2_ITERS}) prove's launches: K1 "
+          f"(mont_mul) {sha2_prove_counts['mont_mul']}, K10 (field_addsub) "
+          f"{sha2_prove_counts['field_addsub']}, K13 (collate) "
+          f"{sha2_prove_counts['collate']}; all kernels "
+          f"{sum(sha2_prove_counts.values())} [{card}]", flush=True)
     out8 = bytes(io8.outputs)[:32]
     if out8 != sha2_chain_expected(cli.SHA2_INPUT, SHA2_ITERS):
         fail(f"sha2-chain({SHA2_ITERS}): the guest's output {out8.hex()} is "

@@ -30,7 +30,7 @@ from .utils.caches import build_dir
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(build_dir())
-SOURCES = ("mont", "gp_pair", "point", "keccak", "field_ops")
+SOURCES = ("mont", "gp_pair", "point", "keccak", "field_ops", "collate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

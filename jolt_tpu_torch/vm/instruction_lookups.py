@@ -26,7 +26,6 @@ from .. import _native as nat
 from ..field import arith
 from ..field import device as fd
 from ..field import kernels as fk
-from ..field.generic import DevF
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
 from ..lasso.memory_checking import MemoryCheckingProof, MultisetHashes
@@ -43,9 +42,41 @@ from ..subprotocols.grand_product import (BatchedDenseGrandProduct,
 from ..subprotocols.sumcheck import SumcheckInstanceProof, VerificationError
 from ..transcript import Transcript
 from ..utils.math import log2_strict
+from .collation import collate
 
 PRIMARY_PROTOCOL = b"Jolt instruction lookups"
 MEMCHECK_PROTOCOL = b"Instruction lookups check"
+
+
+def memory_layout(instruction_classes, subtables, C: int, M: int):
+    """The memories of a lookup set (instruction_lookups.rs:493-547): one
+    per (subtable, chunk index) that some instruction reads, numbered
+    subtable by subtable in the canonical subtable order.  Returns
+    (subtable_to_memory_indices, memory_to_subtable_index,
+    memory_to_dimension_index, instruction_to_memory_indices)."""
+    sub_enum = {s.key(): i for i, s in enumerate(subtables)}
+    # union of chunk indices per subtable
+    subtable_chunks = [set() for _ in subtables]
+    for cls in instruction_classes:
+        for sub, indices in cls().subtables(C, M):
+            subtable_chunks[sub_enum[sub.key()]].update(indices)
+    sub_to_mems, mem_to_sub, mem_to_dim = [], [], []
+    mem = 0
+    for s_idx, chunks in enumerate(subtable_chunks):
+        dims = sorted(chunks)
+        sub_to_mems.append(list(range(mem, mem + len(dims))))
+        mem_to_sub.extend([s_idx] * len(dims))
+        mem_to_dim.extend(dims)
+        mem += len(dims)
+    instr_to_mems = []
+    for cls in instruction_classes:
+        mems = []
+        for sub, indices in cls().subtables(C, M):
+            for m_idx in sub_to_mems[sub_enum[sub.key()]]:
+                if mem_to_dim[m_idx] in indices:
+                    mems.append(m_idx)
+        instr_to_mems.append(mems)
+    return sub_to_mems, mem_to_sub, mem_to_dim, instr_to_mems
 
 
 class InstructionLookupsPreprocessing:
@@ -60,38 +91,12 @@ class InstructionLookupsPreprocessing:
         self.C, self.M = C, M
         self.num_instructions = len(self.instruction_classes)
 
-        # canonical subtable enum order (rv32i_vm.rs subtable_enum!)
         self.subtables = list(subtable_order)
-        sub_enum = {s.key(): i for i, s in enumerate(self.subtables)}
         self.num_subtables = len(self.subtables)
-
-        # union of chunk indices per subtable
-        subtable_chunks = [set() for _ in self.subtables]
-        for cls in self.instruction_classes:
-            for sub, indices in cls().subtables(C, M):
-                subtable_chunks[sub_enum[sub.key()]].update(indices)
-
-        self.subtable_to_memory_indices = []
-        self.memory_to_subtable_index = []
-        self.memory_to_dimension_index = []
-        mem = 0
-        for s_idx, chunks in enumerate(subtable_chunks):
-            dims = sorted(chunks)
-            self.subtable_to_memory_indices.append(
-                list(range(mem, mem + len(dims))))
-            self.memory_to_subtable_index.extend([s_idx] * len(dims))
-            self.memory_to_dimension_index.extend(dims)
-            mem += len(dims)
-        self.num_memories = mem
-
-        self.instruction_to_memory_indices = []
-        for cls in self.instruction_classes:
-            mems = []
-            for sub, indices in cls().subtables(C, M):
-                for m_idx in self.subtable_to_memory_indices[sub_enum[sub.key()]]:
-                    if self.memory_to_dimension_index[m_idx] in indices:
-                        mems.append(m_idx)
-            self.instruction_to_memory_indices.append(mems)
+        (self.subtable_to_memory_indices, self.memory_to_subtable_index,
+         self.memory_to_dimension_index, self.instruction_to_memory_indices
+         ) = memory_layout(self.instruction_classes, self.subtables, C, M)
+        self.num_memories = len(self.memory_to_subtable_index)
 
         self.subtable_entries = np.stack(
             [s.materialize_entries(M) for s in self.subtables])  # [S, M]
@@ -197,8 +202,8 @@ def _primary_round_evals(pre: InstructionLookupsPreprocessing, eq, out, fl, e
     top variable is split into lo/hi halves (views), points t >= 2
     extrapolate by adding hi - lo (K10), and each point sums eq_t *
     (sum_k f_t[k] * g_k(E_t) - out_t) over the half-hypercube (the
-    collations on K1 and K10, the finisher on K12)."""
-    spec, C, M = pre.spec, pre.C, pre.M
+    collations and their sum on K13, the finisher on K12)."""
+    spec = pre.spec
     h = eq.shape[-1] // 2
     lo = [t[..., :h] for t in (eq, out, fl, e)]
     hi = [t[..., h:] for t in (eq, out, fl, e)]
@@ -211,14 +216,7 @@ def _primary_round_evals(pre: InstructionLookupsPreprocessing, eq, out, fl, e
         elif t >= 2:
             cur = [fd.fadd(spec, c, d) for c, d in zip(cur, diff)]
         eq_t, out_t, f_t, e_t = cur
-        inner = None
-        for k, cls in enumerate(pre.instruction_classes):
-            vals = [DevF(e_t[:, mi], spec)
-                    for mi in pre.instruction_to_memory_indices[k]]
-            g = cls().combine_lookups(vals, C, M)
-            term = fd.fmul(spec, f_t[:, k], g.limbs)
-            inner = term if inner is None else fd.fadd(spec, inner, term)
-        evals.append(primary_finish(spec, eq_t, out_t, inner))
+        evals.append(primary_finish(spec, eq_t, out_t, collate(pre, e_t, f_t)))
     return torch.stack(evals, dim=1)
 
 

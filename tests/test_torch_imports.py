@@ -9,8 +9,9 @@ to the CPU.
 - no source of the port, and not chip_smoke.py, imports them;
 - an entry point called with no CUDA card and no device="cpu" raises;
 - a kernel wrapper handed tensors that are not on the CPU (K1-K7, the
-  device Fiat-Shamir's K8 and K9, and the field programs K10-K12, also
-  through fd.fadd, fsub, fneg and fsum) launches its
+  device Fiat-Shamir's K8 and K9, the field programs K10-K12, also
+  through fd.fadd, fsub, fneg and fsum, and the collations' K13, also
+  with one operand on the CPU) launches its
   kernel or raises: it never runs its plain version instead, and neither
   do the windowed MSM, Hyrax, Zeromorph, the grand-product commit or the
   Quarks product tree.
@@ -19,6 +20,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -38,12 +40,15 @@ from jolt_tpu_torch.evm import fixtures as evm_fixtures
 from jolt_tpu_torch.field import device as fd
 from jolt_tpu_torch.field import kernels as fk
 from jolt_tpu_torch.field.spec import fr_spec
-from jolt_tpu_torch.instructions import XorInstruction
+from jolt_tpu_torch.instructions import (AddInstruction, BneInstruction,
+                                         XorInstruction)
 from jolt_tpu_torch.lasso import SurgePreprocessing
 from jolt_tpu_torch.parallel import sharding
 from jolt_tpu_torch.subprotocols import fs_device as fsd
 from jolt_tpu_torch.subprotocols.grand_product_quarks import QuarkGrandProduct
 from jolt_tpu_torch.utils import keccak_device as kd
+from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES
+from jolt_tpu_torch.vm import collation
 from jolt_tpu_torch.vm import instruction_lookups as il
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -156,6 +161,14 @@ def _meta(*shape):
     return torch.zeros(shape, dtype=torch.int32, device="meta")
 
 
+# what collate reads of the fib VM's lookup preprocessing (ADD, BNE; C =
+# 4, M = 2^8; 6 memories)
+_FIB_LOOKUPS = SimpleNamespace(
+    instruction_classes=[AddInstruction, BneInstruction],
+    instruction_to_memory_indices=il.memory_layout(
+        [AddInstruction, BneInstruction], RV32I_SUBTABLES, 4, 1 << 8)[3],
+    C=4, M=1 << 8, spec=fr_spec())
+
 _WRAPPERS = {
     "mont_mul": lambda: fk.mont_mul(fr_spec(), _meta(16, 8), _meta(16, 8)),
     "mont_mul_bl": lambda: fk.mont_mul_bl(fr_spec(), _meta(2, 16, 8),
@@ -183,6 +196,11 @@ _WRAPPERS = {
     "fd.fsum": lambda: fd.fsum(fr_spec(), _meta(16, 8), -1),
     "primary_finish": lambda: il.primary_finish(
         fr_spec(), _meta(16, 8), _meta(16, 8), _meta(16, 8)),
+    "collate": lambda: collation.collate(_FIB_LOOKUPS, _meta(16, 6, 8),
+                                         _meta(16, 2, 8)),
+    "collate, flags on the CPU": lambda: collation.collate(
+        _FIB_LOOKUPS, _meta(16, 6, 8), torch.zeros((16, 2, 8),
+                                                   dtype=torch.int32)),
 }
 
 

@@ -124,14 +124,16 @@ def _constexprs(src: str) -> dict[str, int]:
 
 def test_launch_constants_match_the_sources():
     """Each kernel's CUDA function and threads per block, K2's plan
-    constants and K8's and K9's limits (segments, the events K8's shared
-    memory holds, K9's shared memory at each degree), as the Python side
-    keeps them, agree with the sources."""
+    constants, K8's and K9's limits (segments, the events K8's shared
+    memory holds, K9's shared memory at each degree) and K13's slots and
+    operand encoding, as the Python side keeps them, agree with the
+    sources."""
     from jolt_tpu_torch.subprotocols import fs_device  # noqa: F401 (K9)
     from jolt_tpu_torch.utils import keccak_device  # noqa: F401 (K8)
+    from jolt_tpu_torch.vm import collation  # K13
     from jolt_tpu_torch.vm import instruction_lookups  # noqa: F401 (K12)
     csrc = Path(nat.__file__).resolve().parent / "csrc"
-    assert len(nat.KERNELS) == 12
+    assert len(nat.KERNELS) == 13
     for k in nat.KERNELS:
         src = (csrc / f"{k.source}.cu").read_text()
         fn = k.function.split("<")[0]
@@ -150,3 +152,6 @@ def test_launch_constants_match_the_sources():
     for d in (1, 2, 3, 8, 9, 12, 37, 38, 80):
         assert eval(" ".join(body.split()), {}, {"degree": d}) == \
             fs_device.k9_smem_bytes(d)
+    c = _constexprs((csrc / "collate.cu").read_text())
+    assert (c["MAX_SLOTS"], c["KIND_SHIFT"]) == (collation.MAX_SLOTS,
+                                                 collation.KIND_SHIFT)

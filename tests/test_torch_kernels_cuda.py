@@ -15,7 +15,9 @@ the card; K10 (the modular add, subtract, negate) at 1 to 2^20 elements,
 on strided halves and broadcasts and edge residues, refusing int64; K11
 (the modular sum) at lengths 1 to 2^20 along each axis and over many
 rows, twice (its tickets reset); K12 (the primary round's finisher) at h
-= 1 to 2^15; each call of K10-K12 one launch.  Every
+= 1 to 2^15; K13 (the collations and their sum at a point) on the round's
+halves and t >= 2 points, h = 1 to 2^15, Fr and Fq, and one launch a
+point of a primary round; each call of K10-K13 one launch.  Every
 comparison is of integer
 limbs or transcript bytes: the tolerance is zero.  This file imports nothing of JAX, so on a
 machine without it run it as
@@ -608,3 +610,92 @@ def test_primary_finish(dev, h):
         _equal(_launched(il.PRIMARY_FINISH,
                          lambda: il.primary_finish(spec, eq, out, inner)),
                want)
+
+
+# ---------------------------------------------------------------------------
+# K13: the primary sumcheck's collations and their sum at one point
+# ---------------------------------------------------------------------------
+
+def _lookups(spec, M, narrow=False):
+    """What collate reads of rv32i_vm()'s lookup preprocessing (C = 4; at
+    M = 2^8 the narrow VM's 23 instructions)."""
+    from types import SimpleNamespace
+    from jolt_tpu_torch.instructions import RV32I_INSTRUCTIONS
+    from jolt_tpu_torch.vm import instruction_lookups as il
+    from jolt_tpu_torch.vm.fixtures import narrow_instructions
+    from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES
+    classes = (narrow_instructions(RV32I_INSTRUCTIONS) if narrow
+               else list(RV32I_INSTRUCTIONS))
+    return SimpleNamespace(
+        instruction_classes=classes, C=4, M=M, spec=spec,
+        instruction_to_memory_indices=il.memory_layout(
+            classes, RV32I_SUBTABLES, 4, M)[3])
+
+
+@pytest.mark.parametrize("h", [1, 2, 5, 1 << 15])
+def test_collate(dev, h):
+    """K13 on rv32i_vm()'s 29 instructions (55 memories) at the round's
+    three kinds of point: the lo and hi halves of E [16, 55, 2h] and
+    flags [16, 29, 2h] (views), and contiguous t >= 2 tensors; edge
+    residues; one launch a call, twice (the tables are uploaded once)."""
+    from jolt_tpu_torch.vm import collation
+    spec = fr_spec()
+    pre = _lookups(spec, 1 << 16)
+    e, fl = _edge(spec, dev, 55, 2 * h, seed=h), _edge(spec, dev, 29, 2 * h,
+                                                        seed=h + 1)
+    points = [(e[..., :h], fl[..., :h]), (e[..., h:], fl[..., h:]),
+              (_edge(spec, dev, 55, h, seed=3), _edge(spec, dev, 29, h,
+                                                       seed=4))]
+    for e_t, f_t in points:
+        want = collation.collate_plain(pre, e_t, f_t)
+        for _ in range(2):
+            got = _launched(collation.COLLATE,
+                            lambda: collation.collate(pre, e_t, f_t))
+            assert got.is_contiguous()
+            _equal(got, want)
+
+
+@pytest.mark.parametrize("name", SPECS)
+def test_collate_narrow_vm(dev, name):
+    """The narrow VM's 23 instructions at M = 2^8, in Fr and in Fq (the
+    field's words go in as K10-K12 take them)."""
+    from jolt_tpu_torch.vm import collation
+    spec = SPECS[name]
+    pre = _lookups(spec, 1 << 8, narrow=True)
+    m = 1 + max(max(mk) for mk in pre.instruction_to_memory_indices)
+    e_t = _edge(spec, dev, m, 300, seed=5)
+    f_t = _edge(spec, dev, 23, 300, seed=6)
+    _equal(_launched(collation.COLLATE,
+                     lambda: collation.collate(pre, e_t, f_t)),
+           collation.collate_plain(pre, e_t, f_t))
+
+
+def test_collate_refuses_int64(dev):
+    from jolt_tpu_torch.vm import collation
+    spec = fr_spec()
+    pre = _lookups(spec, 1 << 16)
+    e_t, f_t = _rand(spec, dev, 55, 4), _rand(spec, dev, 29, 4)
+    with pytest.raises(TypeError, match="int32"):
+        collation.collate(pre, e_t.long(), f_t)
+    with pytest.raises(ValueError, match="CUDA"):
+        collation.collate(pre, e_t, f_t.cpu())
+
+
+def test_primary_round_one_collate_a_point(dev):
+    """_primary_round_evals on the card: one K13 launch per point (degree
+    + 1 of them), equal to the same round on the CPU."""
+    from jolt_tpu_torch.instructions import RV32I_INSTRUCTIONS
+    from jolt_tpu_torch.vm import collation
+    from jolt_tpu_torch.vm import instruction_lookups as il
+    from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES
+    spec = fr_spec()
+    by = {c.name: c for c in RV32I_INSTRUCTIONS}
+    classes = [by[n] for n in ("add", "xor", "slt", "sltu", "sll")]
+    pre = il.InstructionLookupsPreprocessing(classes, RV32I_SUBTABLES, 4,
+                                             1 << 8, dev, spec)
+    ts = [_edge(spec, "cpu", *s, seed=i) for i, s in enumerate(
+        [(64,), (64,), (5, 64), (pre.num_memories, 64)])]
+    want = il._primary_round_evals(pre, *ts)
+    got = _launched(collation.COLLATE, lambda: il._primary_round_evals(
+        pre, *(t.to(dev) for t in ts)), n=pre.sumcheck_degree + 1)
+    _equal(got, want)

@@ -8,6 +8,11 @@
   collations, K12 at each point) against jolt_tpu's
   `_primary_round_evals_decomposed`, on a preprocessing of five
   instructions of the narrow VM at M = 2^8;
+- `collate` (the collations and their sum, K13's function; its plain
+  version on the CPU) at a round's points against the sum of jolt_tpu's
+  `_g_term_jit` terms for the same five instructions: t = 0 and 1 the
+  lo and hi halves of [16, m, 2H] and [16, NI, 2H] (strided views), t >=
+  2 contiguous tensors, as K10 makes them;
 - the collations' constants (DevF's coerced ints): a second pass of the
   29 collations of rv32i_vm() uploads none, and every result equals the
   pass that uploaded each constant afresh.
@@ -29,6 +34,7 @@ from jolt_tpu_torch.field import generic
 from jolt_tpu_torch.field.generic import DevF
 from jolt_tpu_torch.field.spec import fr_spec
 from jolt_tpu_torch.instructions import RV32I_INSTRUCTIONS
+from jolt_tpu_torch.vm import collation
 from jolt_tpu_torch.vm import instruction_lookups as il
 from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES
 
@@ -102,6 +108,34 @@ def test_primary_round_evals_match_decomposed():
                                             (eq, out, fl, e)))
     assert got.shape == (16, pre.sumcheck_degree + 1)
     assert (limbs_to_numpy(got) == np.asarray(want)).all()
+
+
+def test_collate_matches_g_term_jit():
+    """The three kinds of point a round hands collate: the lo and hi
+    halves of e [16, m, 2H], flags [16, NI, 2H], and a contiguous t >= 2
+    point; against jolt_tpu's terms summed mod p on the host.  H = 4, the
+    round's shape above, whose five programs that test compiled."""
+    H = 4
+    pre = il.InstructionLookupsPreprocessing(
+        _classes(RV32I_INSTRUCTIONS), RV32I_SUBTABLES, C, M_NARROW, "cpu", FR)
+    rng = np.random.default_rng(104)
+    e = _rand(rng, (pre.num_memories, 2 * H))
+    fl = _rand(rng, (pre.num_instructions, 2 * H))
+    e2 = _rand(rng, (pre.num_memories, H))
+    fl2 = _rand(rng, (pre.num_instructions, H))
+    te, tfl = limbs_from_numpy(e), limbs_from_numpy(fl)
+    points = [(e[..., :H], fl[..., :H], te[..., :H], tfl[..., :H]),
+              (e[..., H:], fl[..., H:], te[..., H:], tfl[..., H:]),
+              (e2, fl2, limbs_from_numpy(e2), limbs_from_numpy(fl2))]
+    for j_e, j_f, t_e, t_f in points:
+        terms = [jfd.unpack_ints(np.asarray(jil._g_term_jit(
+            JFR, cls, tuple(pre.instruction_to_memory_indices[k]), k, C,
+            M_NARROW)(jnp.asarray(j_e), jnp.asarray(j_f))))
+            for k, cls in enumerate(_classes(J_INSTRUCTIONS))]
+        want = [sum(int(t[i]) for t in terms) % FR.p for i in range(H)]
+        got = collation.collate(pre, t_e, t_f)
+        assert got.shape == (16, H) and got.is_contiguous()
+        assert [int(v) for v in jfd.unpack_ints(limbs_to_numpy(got))] == want
 
 
 def _collations(vals_of):
