@@ -33,12 +33,15 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      [16, 55, 2^15] views of [16, 55, 2^16], and on a broadcast scalar,
      edge residues and a = b, K11 (the modular sum) over 2^23 terms (the
      sha2-chain prove's largest sum) and 2^20, over the leading axis of
-     [16, 110, 2^15] (a lane per row) and at lengths 1 and 3, K12 (the
-     primary round's point finisher) at h = 2^15, and K13 (rv32i_vm()'s
-     29 collations and their sum at one point) on the lo halves of
-     [16, 55, 2^16] and [16, 29, 2^16] (h = 2^15), the hi halves, a
-     contiguous t >= 2 point, h = 1 and 2, and edge residues, and each of
-     their wrappers' host time per call;
+     [16, 110, 2^15] (a lane per row) and at lengths 1 and 3, and the
+     primary round's kernel (the extrapolation, rv32i_vm()'s 29
+     collations through the group plan, the finisher and the sum of every
+     point, one launch a round) at the first round (E [16, 55, 2^16],
+     flags [16, 29, 2^16], eq and out [16, 2^16]; h = 2^15), at h = 2^12,
+     at h = 2 and 1 on edge residues, on the mini VM (ADD, BNE) and on
+     one shard of a 2-shard mesh's first round (cyclic, h = 2^14), with
+     its INT32, bytes and chain bounds (the work's dependent chain, and
+     the group plan's), and each of their wrappers' host time per call;
   3. the main path begins (launch counts set to 0): HyperKZG setup of the
      2^20-point SRS, generated on the card; its first 2^17 points must equal
      fixtures/srs/srs_131072_6a6f6c74.npz bit for bit;
@@ -69,7 +72,8 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      sha2-chain(13) on rv32i_vm() (29 instructions, 26 subtables, C = 4,
      M = 2^16) with the input 0x05 x 32, traced to 62,413 steps, padded to
      T = 2^16, HyperKZG from the SRS fixture, as phase 6: one timed prove
-     (K1-K5, K10-K13 must have launched; the largest call of each kernel,
+     (K1-K5, K10, K11 and the round must have launched; the largest call
+     of each kernel,
      and of K2 and K3 at each batch size, replayed against the plain
      version),
      accept, tamper rejected, timed verify; the guest's 32
@@ -81,8 +85,10 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      proves' seconds are printed, with K8's and K9's launches in the
      first prove and their summed device ms (each shape's calls times its
      kernel's time on the card alone at that shape), and the first
-     prove's launches of K1, K10 and K13 and of all kernels, and each
-     kernel's calls in it with the sum of their bounds.  The first
+     prove's launches of K1, K10 and the round and of all kernels, and
+     each kernel's calls in it with the sum of their bounds (the larger
+     of bytes, operations and, for K8, K9 and the round, the work's
+     dependent chain, per call).  The first
      prove runs with the profiling spans on (utils/profiling.py; each
      syncs the card on entry and exit): their table is printed, and each
      of the seven top-level prove spans (witness_generation,
@@ -186,9 +192,9 @@ and prints the compiler and the libraries' paths.  Then a {"kernels":
 {...}}.  Imports nothing of JAX or jolt_tpu.
 K7 (jac_double) lies on no VM or Surge path (see csrc/point.cu): phase 2
 holds it against its plain version, and those paths' launch checks exempt
-it; phase 11's Hyrax commit launches it.  K12 (primary_finish) and K13
-(collate) lie on the VM paths, not on Surge's (phase 4 exempts them); the
-kernels line's `launches` of K10-K13, the field programs, are phase 8's
+it; phase 11's Hyrax commit launches it.  The primary round's kernel
+(primary_round) lies on the VM paths, not on Surge's (phase 4 exempts
+it); the kernels line's `launches` of K10, K11 and the round are phase 8's
 sha2-chain(13) path (setup and the prove).  Phases 3-10, 12 (the quark
 path) and 13-15 run with device Fiat-Shamir, the default on the card, so
 K8 and K9 launch on them.
@@ -244,14 +250,13 @@ REGS_PER_SM, SMEM_PER_SM, MAX_WARPS_PER_SM = 65536, 228 * 1024, 64
 OFF_PATH = {"jac_double": "no VM or Surge prove path of either package "
             "launches jac_double_pallas (K7); phase 11's Hyrax commit does "
             "(the windowed MSM's Horner doublings)"}
-OFF_SURGE = {"primary_finish": "the Jolt VM's primary sumcheck finisher "
-             "(K12); Surge's primary sumcheck runs subprotocols/sumcheck.py",
-             "collate": "the Jolt VM's primary sumcheck collations (K13); "
-             "Surge's primary sumcheck runs `combine_with_eq` through "
-             "`Sumcheck::prove_arbitrary`"}
-FIELD_KERNELS = ("field_addsub", "field_sum", "primary_finish",
-                 "collate")     # K10-K13: their kernels line's launches
-#   are phase 8's path
+OFF_SURGE = {"primary_round": "the Jolt VM's primary sumcheck round (its "
+             "collations and finisher); Surge's primary sumcheck runs "
+             "`combine_with_eq` through `Sumcheck::prove_arbitrary`"}
+FIELD_KERNELS = ("field_addsub", "field_sum",
+                 "primary_round")   # their kernels line's launches are
+#   phase 8's path
+CHAIN_KERNELS = FS_KERNELS + ("primary_round",)   # bounded by a chain
 ADDSUB_OPS = 25                    # 32-bit operations of one modular add
 #   or subtract (field.cuh add_mod, sub_mod): 8-word add (subtract), the
 #   8-word conditional subtraction (addition) with its borrow, 8 selects
@@ -339,12 +344,56 @@ def fs_chain_levels(name: str, args) -> tuple[int, int]:
             + (d + 1) * PRODUCT_DEPTH + d * ADD_DEPTH), serial
 
 
+def round_chain_levels(args) -> tuple[int, int]:
+    """Dependent instruction levels of one call of the primary round's
+    kernel: (the work's chain, the group plan's).  The work's: a staged
+    column's extrapolation to the last point (the subtract, t's doublings,
+    the add of lo), then the deepest instruction's collation as a DAG and
+    its f_k product, the instructions' terms summed as a tree, the
+    finisher (a subtract and a product), the sum over the h elements as a
+    tree.  The plan's, as the kernel runs it: the stage (the subtract, the
+    doublings and adds of the block's first point and of its step, the
+    add of lo), then for each of a block's points its longest group's
+    rows in order, the G partial sums in turn, the finisher, the warp's
+    shuffle tree and the step to the next point; then the last block's
+    sum of a point's tile partials (ceil(tiles / 32) a lane, then the
+    shuffle tree)."""
+    from jolt_tpu_torch.vm import collation
+    from jolt_tpu_torch.vm.instruction_lookups import round_plan
+    pre, eq = args[0], args[1]
+    prog = collation.program(pre)
+    plan = prog.plan
+    n = eq.shape[-1]
+    points, split, tiles, _ = round_plan(pre, n)
+    lg = lambda x: math.ceil(math.log2(x)) if x > 1 else 0  # noqa: E731
+    mask = (1 << collation.KIND_SHIFT) - 1
+    depth, terms = {}, []            # a slot's levels; each term's
+    for op, dst, a, b in prog.rows:
+        d = max(depth[r & mask] if r >> collation.KIND_SHIFT ==
+                collation.SLOT else 0 for r in (a, b))
+        depth[dst] = d + (PRODUCT_DEPTH if op == collation.MUL
+                          else ADD_DEPTH)
+        if op == collation.MUL and collation.F_COL in (
+                a >> collation.KIND_SHIFT, b >> collation.KIND_SHIFT):
+            terms.append(depth[dst])
+    extrap = ADD_DEPTH * (2 + lg(points - 1)) if points > 2 else ADD_DEPTH
+    chain = (extrap + max(terms) + ADD_DEPTH * lg(len(terms))
+             + ADD_DEPTH + PRODUCT_DEPTH + ADD_DEPTH * lg(n // 2))
+    stage = ADD_DEPTH * (2 + 2 * split.bit_length()
+                         + 2 * (split - 1).bit_length())
+    per_point = (max(plan.levels) + ADD_DEPTH * plan.n_groups + ADD_DEPTH
+                 + PRODUCT_DEPTH + 5 * ADD_DEPTH + ADD_DEPTH)
+    final = ADD_DEPTH * (-(-tiles // 32) + 5)
+    return chain, stage + -(-points // split) * per_point + final
+
+
 def work(name: str, args) -> tuple[int, int]:
     """(bytes, Montgomery products) that one call of kernel `name` needs:
-    each input read once and each output written once (int32 limbs; K13
-    reads the columns its program reads), and the products of the
-    function itself (K13: its program's, per element): K2 5B + 3 per pair
-    of B circuits,
+    each input read once and each output written once (int32 limbs; the
+    primary round reads the lo and hi halves of the columns its group
+    plan stages), and the products of the function itself (the round: its
+    program's and the finisher's, per element and point): K2 5B + 3 per
+    pair of B circuits,
     K3 2B + 1, K5 12 per add (RCB16 Alg. 7), K6 16 (an add; the doubling
     and infinity lanes of phase 2 are 2^-14 of its lanes), K7 7
     (dbl-2009-l); K8 and K9 as fs_work (their Keccak operations are added
@@ -361,15 +410,13 @@ def work(name: str, args) -> tuple[int, int]:
         _, a, axis = args
         ax = axis + 1 if axis >= 0 else axis + a.dim()
         return tb(a) + 4 * a.numel() // a.shape[ax], 0
-    if name == "primary_finish":
-        _, eq, out, inner = args
-        return tb(eq, out, inner) + 4 * 16, eq.shape[1]
-    if name == "collate":
+    if name == "primary_round":
         from jolt_tpu_torch.vm import collation
-        pre, e_t, _ = args
-        prog, h = collation.program(pre), e_t.shape[-1]
-        return (4 * 16 * h * (len(prog.columns) + prog.n_flags + 1),
-                prog.products * h)
+        pre, eq = args[0], args[1]
+        prog, n = collation.program(pre), eq.shape[-1]
+        points = pre.sumcheck_degree + 1
+        return (4 * 16 * (n * len(prog.plan.stage) + points),
+                points * n // 2 * (prog.products + 1))
     if name == "mont_mul":
         import torch
         _, a, b = args
@@ -391,10 +438,12 @@ def work(name: str, args) -> tuple[int, int]:
 
 
 def field_adds(name: str, args) -> int:
-    """Modular adds and subtracts of one K10, K11, K12 or K13 call
+    """Modular adds and subtracts of one K10, K11 or primary round call
     (ADDSUB_OPS 32-bit operations each): an add an element; n - 1 a sum
-    of n terms; a subtract and an add a finisher's term; K13's program's
-    adds and subtracts per element."""
+    of n terms; for the round, per staged column and element the subtract
+    hi - lo and an add a point past t = 1, per element and point the
+    program's adds and subtracts and the finisher's subtract, per point
+    the sum of the h terms."""
     if name == "field_addsub":
         import torch
         return math.prod(torch.broadcast_shapes(args[1].shape,
@@ -403,11 +452,12 @@ def field_adds(name: str, args) -> int:
         _, a, axis = args
         n = a.shape[axis + 1 if axis >= 0 else axis + a.dim()]
         return a.numel() // 16 // n * (n - 1)
-    if name == "primary_finish":
-        return 2 * args[1].shape[1]
-    if name == "collate":
+    if name == "primary_round":
         from jolt_tpu_torch.vm import collation
-        return collation.program(args[0]).adds * args[1].shape[-1]
+        pre, h = args[0], args[1].shape[-1] // 2
+        prog, points = collation.program(pre), pre.sumcheck_degree + 1
+        return (points * h * (prog.adds + 1) + points * (h - 1)
+                + len(prog.plan.stage) * h * (points - 1))
     return 0
 
 
@@ -720,8 +770,7 @@ def main() -> None:
         "fs_round": (fsd.fs_round, fsd.fs_round_plain),
         "field_addsub": (fk.field_addsub, fk.field_addsub_plain),
         "field_sum": (fk.field_sum, fk.field_sum_plain),
-        "primary_finish": (il.primary_finish, il.primary_finish_plain),
-        "collate": (collation.collate, collation.collate_plain)}
+        "primary_round": (il.primary_round, il.primary_round_plain)}
     results = {}                    # {kernel: {phase: row}}
     more = {}                       # {kernel: [rows at further shapes]}
     launch = {}                     # the launch floor, measured with K8
@@ -738,7 +787,28 @@ def main() -> None:
         return (nbytes, ops, nbytes / HBM_BYTES_PER_S * 1e3,
                 ops / imad_rate * 1e3)
 
-    def compare(phase, name, shape, args, record=True):
+    def latency_ms(name, args):
+        """(the work's chain, the design's chain) of one call of a kernel
+        that a dependent chain bounds (K8, K9, the round), each in ms at
+        4 cycles a level and the card's clock, with one launch: for K8
+        and K9 the design's is one thread running all of it, for the
+        round the group plan's."""
+        chain, design = (round_chain_levels(args) if name == "primary_round"
+                         else fs_chain_levels(name, args))
+        return tuple(lv * DEP_CYCLES / clock_hz * 1e3 + launch["ms"]
+                     for lv in (chain, design))
+
+    def least_ms(name, args):
+        """The least time of one call: the larger of its bytes, its
+        operations and, where one bounds it, its chain."""
+        return max(*bounds(name, args)[2:], *(
+            latency_ms(name, args)[:1] if name in CHAIN_KERNELS else ()))
+
+    def compare(phase, name, shape, args, record=True, time_plain=True):
+        """The kernel against its plain version on `args`, then each
+        timed (the plain version only where `time_plain`: the round's
+        plain version takes seconds a call, so its further shapes are
+        compared, not timed)."""
         wrapper, plain = KERNEL[name]
         got = as_tuple(wrapper(*args))
         want = as_tuple(plain(*args))
@@ -750,26 +820,44 @@ def main() -> None:
                  f"abs err {err})")
         del got, want
         kernel_ms = event_ms(lambda: wrapper(*args), 10)
-        plain_ms = event_ms(lambda: plain(*args), 1, warm=True)
+        plain_ms = (event_ms(lambda: plain(*args), 1, warm=True)
+                    if time_plain else None)
         nbytes, muls, bytes_ms, ops_ms = bounds(name, args)
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.2f}"
         print(f"{phase}: {name} shape={shape} kernel_ms={kernel_ms:.4f} "
-              f"plain_ms={plain_ms:.2f} bytes={nbytes} "
+              f"plain_ms={plain_txt} bytes={nbytes} "
               f"bytes_bound_ms={bytes_ms:.4f} int32_muls={muls} "
               f"ops_bound_ms={ops_ms:.4f} bound_by={bound_by} "
               f"max_abs_err={err}", flush=True)
         row = dict(phase=phase, shape=shape, max_abs_err=err, ms=kernel_ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
+        if name == "primary_round":
+            # the work's dependent chain and one launch, beside the group
+            # plan's chain: what bounds the round at small h
+            chain, design = round_chain_levels(args)
+            row["latency_bound_ms"], row["plan_latency_bound_ms"] = \
+                latency_ms(name, args)
+            row["launch_ms"] = launch["ms"]
+            points, split, tiles, blocks = il.round_plan(
+                args[0], args[1].shape[-1])
+            print(f"{phase}: {name} shape={shape} latency_bound_ms="
+                  f"{row['latency_bound_ms']:.4f} ({chain} levels: the "
+                  f"work's chain; one launch {launch['ms']:.4f} ms); the "
+                  f"group plan's chain {design} levels, "
+                  f"{row['plan_latency_bound_ms']:.4f} ms; INT32 bound "
+                  f"{ops_ms:.4f} ms, bytes bound {bytes_ms:.4f} ms; "
+                  f"{blocks} blocks ({tiles} tiles x split {split}, "
+                  f"{points} points)", flush=True)
         if name in FS_KERNELS:
             # the work's dependent chain and one launch: what bounds K8
             # and K9 in fact; beside it the one-thread chain
             _, prods, perms = fs_work(name, args)
             chain, serial = fs_chain_levels(name, args)
-            row["latency_bound_ms"], row["serial_latency_bound_ms"] = (
-                lv * DEP_CYCLES / clock_hz * 1e3 + launch["ms"]
-                for lv in (chain, serial))
+            row["latency_bound_ms"], row["serial_latency_bound_ms"] = \
+                latency_ms(name, args)
             row["launch_ms"] = launch["ms"]
             print(f"{phase}: {name} shape={shape} latency_bound_ms="
                   f"{row['latency_bound_ms']:.4f} ({chain} levels: "
@@ -960,8 +1048,8 @@ def main() -> None:
                 f"residues" + (", the hint" if hint9 else ""),
                 (FR, edge_fe(FR, n9), prev9, st8, d9, hint9),
                 record=d9 == 3)
-    # K10-K12, the field programs, at the primary sumcheck's first round
-    # on rv32i_vm() (T = 2^16, 55 memories): K10 on e_t's halves (views,
+    # K10 and K11, the field programs, at the primary sumcheck's first
+    # round on rv32i_vm() (T = 2^16, 55 memories): K10 on e_t's halves (views,
     # element stride 1, batch stride 2^16), on a broadcast constant (DevF's
     # coerced ints), on edge residues and a = b
     h16 = 1 << 15
@@ -994,45 +1082,64 @@ def main() -> None:
             (FR, edge_fe(FR, 55, 1), -1), record=False)
     compare("phase 2", "field_sum", "[16,3] along -1 edge residues",
             (FR, edge_fe(FR, 3), -1), record=False)
-    # K12 at the first round's h = 2^15: eq_t, out_t lo halves of [16, 2^16]
-    eq16, out16 = rand_fe(FR, 2 * h16), rand_fe(FR, 2 * h16)
-    compare("phase 2", "primary_finish", "eq, out [16,2^15] halves of "
-            "[16,2^16], inner [16,2^15]",
-            (FR, eq16[:, :h16], out16[:, :h16], rand_fe(FR, h16)))
-    ed16 = edge_fe(FR, 2 * h16)
-    compare("phase 2", "primary_finish", "[16,2^15] x 3 edge residues",
-            (FR, ed16[:, :h16], ed16[:, h16:], edge_fe(FR, h16)),
-            record=False)
-    # K13 at the first round's points on rv32i_vm()'s preprocessing (29
-    # instructions, 55 memories): t = 0 and 1 the lo and hi halves of E
-    # [16, 55, 2^16] and flags [16, 29, 2^16] (views), t >= 2 contiguous
-    # (K10's outputs), the last rounds' h = 2 and 1, edge residues
+    # The primary round's kernel on rv32i_vm()'s preprocessing (29
+    # instructions, 55 memories): the first round (E [16, 55, 2^16], flags
+    # [16, 29, 2^16], eq and out [16, 2^16]; h = 2^15), h = 2^12, the last
+    # rounds' h = 2 and 1 on edge residues, the mini VM's two instructions,
+    # and one shard of a 2-shard mesh's first round (cyclic: the odd
+    # entries, h = 2^14), each one launch
     pre13 = il.InstructionLookupsPreprocessing(
         RV32I_INSTRUCTIONS, RV32I_SUBTABLES, 4, 1 << 16, dev, FR)
     prog13 = collation.program(pre13)
-    print(f"phase 2: collate's program for rv32i_vm(): {len(prog13.rows)} "
-          f"rows, {prog13.products} Montgomery products and {prog13.adds} "
-          f"adds or subtracts an element, {len(prog13.consts)} constants, "
-          f"{prog13.n_slots} slots, {len(prog13.columns)} memories and "
-          f"{prog13.n_flags} flags read", flush=True)
-    f16 = rand_fe(FR, 29, 2 * h16)
-    compare("phase 2", "collate", "E [16,55,2^15], flags [16,29,2^15]: lo "
-            "halves of [16,55,2^16], [16,29,2^16]",
-            (pre13, e16[..., :h16], f16[..., :h16]))
-    compare("phase 2", "collate", "hi halves of [16,55,2^16], "
-            "[16,29,2^16]", (pre13, e16[..., h16:], f16[..., h16:]),
-            record=False)
-    compare("phase 2", "collate", "[16,55,2^15], [16,29,2^15] contiguous "
-            "(t >= 2)", (pre13, rand_fe(FR, 55, h16), rand_fe(FR, 29, h16)),
-            record=False)
+    plan13 = prog13.plan
+    print(f"phase 2: primary_round's program for rv32i_vm(): "
+          f"{len(prog13.rows)} rows, {prog13.products} Montgomery products "
+          f"and {prog13.adds} adds or subtracts an element and point, "
+          f"{len(prog13.consts)} constants, {len(prog13.columns)} memories "
+          f"and {prog13.n_flags} flags read; its group plan: "
+          f"{plan13.n_groups} groups {[list(g) for g in plan13.groups]}, "
+          f"chain levels {list(plan13.levels)}, slots "
+          f"{list(plan13.group_slots)}, {len(plan13.stage)} staged "
+          f"columns, {plan13.smem_bytes()} B of shared memory a block",
+          flush=True)
+    f16, eq16, out16 = (rand_fe(FR, 29, 2 * h16), rand_fe(FR, 2 * h16),
+                        rand_fe(FR, 2 * h16))
+    compare("phase 2", "primary_round", "the first round: E [16,55,2^16], "
+            "flags [16,29,2^16], eq, out [16,2^16]",
+            (pre13, eq16, out16, f16, e16))
+    h12 = 1 << 12
+    compare("phase 2", "primary_round", "E [16,55,2^13], flags "
+            "[16,29,2^13], eq, out [16,2^13] (h = 2^12)",
+            (pre13, rand_fe(FR, 2 * h12), rand_fe(FR, 2 * h12),
+             rand_fe(FR, 29, 2 * h12), rand_fe(FR, 55, 2 * h12)),
+            record=False, time_plain=False)
     for h13 in (2, 1):
-        e13, f13 = edge_fe(FR, 55, 2 * h13), edge_fe(FR, 29, 2 * h13)
-        compare("phase 2", "collate", f"h = {h13}: lo halves of "
-                f"[16,55,{2 * h13}], [16,29,{2 * h13}] edge residues",
-                (pre13, e13[..., :h13], f13[..., :h13]), record=False)
-    compare("phase 2", "collate", "[16,55,2^12], [16,29,2^12] edge "
-            "residues", (pre13, edge_fe(FR, 55, 1 << 12),
-                         edge_fe(FR, 29, 1 << 12)), record=False)
+        compare("phase 2", "primary_round", f"h = {h13}: E [16,55,{2 * h13}],"
+                f" flags [16,29,{2 * h13}], eq, out [16,{2 * h13}] edge "
+                "residues", (pre13, edge_fe(FR, 2 * h13), edge_fe(FR, 2 * h13),
+                             edge_fe(FR, 29, 2 * h13),
+                             edge_fe(FR, 55, 2 * h13)),
+                record=False, time_plain=False)
+    vm13 = cli.fib_vm(FIB_M)
+    fib13 = il.InstructionLookupsPreprocessing(
+        vm13.instruction_classes, vm13.subtable_order, vm13.C, vm13.M, dev,
+        FR)
+    compare("phase 2", "primary_round", f"the mini VM (ADD, BNE; degree "
+            f"{fib13.sumcheck_degree}): E [16,{fib13.num_memories},2^14], "
+            f"flags [16,2,2^14], eq, out [16,2^14] edge residues",
+            (fib13, edge_fe(FR, 1 << 14), edge_fe(FR, 1 << 14),
+             edge_fe(FR, 2, 1 << 14),
+             edge_fe(FR, fib13.num_memories, 1 << 14)),
+            record=False, time_plain=False)
+    mesh13 = sh.make_mesh(2, device=dev)
+    shard13 = [sh.maybe_shard_hypercube(mesh13, t).shards[1]
+               for t in (eq16, out16, f16, e16)]
+    compare("phase 2", "primary_round", "one shard of a 2-shard mesh's "
+            "first round: " + ", ".join(
+                f"{list(t.shape)} strides {list(t.stride())}"
+                for t in shard13), (pre13, *shard13), record=False,
+            time_plain=False)
+    del shard13, mesh13
     # each wrapper's host time per call (enqueue only, at a size whose
     # kernel is shorter than its wrapper), as the primary round calls them
     sm16 = rand_fe(FR, 55, 128)
@@ -1040,9 +1147,8 @@ def main() -> None:
             ("field_addsub", (FR, sm16[..., :64], sm16[..., 64:], fk.ADD)),
             ("field_addsub", (FR, sm16[:, 0, :64], one16[:, 0], fk.SUB)),
             ("field_sum", (FR, sm16[:, 0], -1)),
-            ("primary_finish", (FR, eq16[:, :h16], out16[:, :h16], eq16[
-                :, h16:])),
-            ("collate", (pre13, e16[..., :64], f16[..., :64]))):
+            ("primary_round", (pre13, eq16[:, :4], out16[:, :4],
+                               f16[..., :4], e16[..., :4]))):
         fn = KERNEL[name][0]
         fn(*args)
         torch.cuda.synchronize()
@@ -1056,7 +1162,7 @@ def main() -> None:
               f"wrapper's enqueue, no sync; " + " x ".join(
                   str(list(t.shape)) for t in args[1:]
                   if isinstance(t, torch.Tensor)) + ")", flush=True)
-    del e16, lo16, hi16, ed16, ee16, eq16, out16, sm16, f16, pre13
+    del e16, lo16, hi16, ed16, ee16, eq16, out16, sm16, f16, pre13, fib13
     torch.cuda.empty_cache()
 
     phase_done("phase 2")
@@ -1162,7 +1268,7 @@ def main() -> None:
                                    "field_addsub", "field_sum")
                     else kd if name == "transcript_events"
                     else fsd if name == "fs_round"
-                    else il if name in ("primary_finish", "collate")
+                    else il if name == "primary_round"
                     else cd)
              for name in KERNEL}
 
@@ -1210,7 +1316,7 @@ def main() -> None:
                 if bound_sums is not None and ts[0].is_cuda:
                     rec = bound_sums.setdefault(name, [0, 0.0])
                     rec[0] += 1
-                    rec[1] += max(bounds(name, args)[2:])
+                    rec[1] += least_ms(name, args)
                 return fn(*args)
             return wrapped
 
@@ -1245,7 +1351,8 @@ def main() -> None:
             if isinstance(args[0], FieldSpec):
                 shape += f" {args[0].name}"
             compare(f"{phase} {label}", name, shape, args,
-                    record=key == top[name])
+                    record=key == top[name],
+                    time_plain=name != "primary_round")
             del args
         torch.cuda.empty_cache()
 
@@ -1329,8 +1436,9 @@ def main() -> None:
               f"{json.dumps(counts)}", flush=True)
         if bound_sums is not None:
             print(f"{phase}: each kernel's calls in the {label} prove and the "
-                  f"sum of their bounds (the larger of bytes and operations "
-                  f"per call) " + json.dumps({
+                  f"sum of their bounds (the larger of bytes, operations "
+                  f"and, for K8, K9 and the round, the work's dependent "
+                  f"chain, per call) " + json.dumps({
                       name: {"calls": c, "bound_ms": round(b, 4),
                              "bound_us_per_call": round(1e3 * b / c, 4)}
                       for name, (c, b) in bound_sums.items()}), flush=True)
@@ -1469,8 +1577,8 @@ def main() -> None:
         spans=True, host_fs=True, inputs=cli.SHA2_INPUT)
     print(f"phase 8: the sha2-chain({SHA2_ITERS}) prove's launches: K1 "
           f"(mont_mul) {sha2_prove_counts['mont_mul']}, K10 (field_addsub) "
-          f"{sha2_prove_counts['field_addsub']}, K13 (collate) "
-          f"{sha2_prove_counts['collate']}; all kernels "
+          f"{sha2_prove_counts['field_addsub']}, the primary round "
+          f"{sha2_prove_counts['primary_round']}; all kernels "
           f"{sum(sha2_prove_counts.values())} [{card}]", flush=True)
     out8 = bytes(io8.outputs)[:32]
     if out8 != sha2_chain_expected(cli.SHA2_INPUT, SHA2_ITERS):
@@ -2245,7 +2353,7 @@ def main() -> None:
             "launches_scaffold_prove": scaffold_counts.get(k.name, 0),
             "launches_mesh_path": mesh_counts[k.name]}
         for key in ("latency_bound_ms", "serial_latency_bound_ms",
-                    "launch_ms", "host_ms"):
+                    "plan_latency_bound_ms", "launch_ms", "host_ms"):
             if key in r:
                 row[key] = r[key]
         row.update(usage[k.name])

@@ -372,6 +372,33 @@ __device__ __forceinline__ Fe reduce(const Fe& a, const Field& F) {
   return csub(a, F.p);
 }
 
+// The sum mod p of a warp's 32 values, in lane 0 (a shuffle tree).
+__device__ __forceinline__ Fe warp_sum(Fe v, const Field& F) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Fe o;
+#pragma unroll
+    for (int k = 0; k < 8; k++)
+      o.w[k] = __shfl_down_sync(0xffffffffu, v.w[k], off);
+    v = fadd(v, o, F);
+  }
+  return v;
+}
+
+// An 8-word partial sum in device memory, written by one block and read
+// by another (through L2: __ldcg) after a ticket.
+__device__ __forceinline__ void put_words(uint32_t* dst, const Fe& v) {
+#pragma unroll
+  for (int k = 0; k < 8; k++) dst[k] = v.w[k];
+}
+
+__device__ __forceinline__ Fe get_words(const uint32_t* src) {
+  Fe v;
+#pragma unroll
+  for (int k = 0; k < 8; k++) v.w[k] = __ldcg(src + k);
+  return v;
+}
+
 }  // namespace jt
 
 extern "C" const char* jt_error_string(int e) {

@@ -1,5 +1,5 @@
-// K10, K11, K12: the field programs that jolt_tpu runs as one jax.jit
-// program per call, each as one launch.
+// K10, K11: the field programs that jolt_tpu runs as one jax.jit program
+// per call, each as one launch.
 //
 // K10 `field_addsub_kernel` replaces jolt_tpu/field/device.py's
 // `_fadd_jit` and `_fsub_jit` (and `fneg`, a subtraction from zero):
@@ -10,19 +10,14 @@
 // halves of a bind, the round split of the primary sumcheck) goes in as a
 // view, with no copy.  The output is contiguous.
 //
-// K11 `field_sum_kernel<0>` replaces `_fsum_jit`: the modular sum along
-// one axis, as `rows` sums of `n` terms each (the wrapper moves the summed
-// axis last as a view; term k of row r sits at r*rs + k*es).  K12
-// `field_sum_kernel<1>` replaces jolt_tpu/vm/instruction_lookups.py's
-// `_point_finish_jit`: one row whose term k is eq[k] * (inner[k] - out[k]),
-// the sub, the Montgomery product and the sum in one launch.
+// K11 `field_sum_kernel` replaces `_fsum_jit`: the modular sum along one
+// axis, as `rows` sums of `n` terms each (the wrapper moves the summed
+// axis last as a view; term k of row r sits at r*rs + k*es).
 //
 // Bound on the H100: bytes.  K10 reads two elements and writes one (192 B
 // of int32 limbs; a [16, 55, 2^15] half is 0.35 GB, 0.10 ms at 3.35
 // TB/s), with one 8-word add and one conditional subtract; K11 reads each
-// term once (64 B) for one add; K12 reads three (192 B) for a subtract and
-// one product (264 32-bit multiplies, 0.5 us for h = 2^15 terms at the
-// card's INT32 rate).  At the primary sumcheck's sizes every bound is
+// term once (64 B) for one add.  At the prover's sizes every bound is
 // microseconds, so the launch and the wrapper's host time are what count:
 // the design is one launch per call with no scratch copies.
 //
@@ -73,57 +68,21 @@ field_addsub_kernel(const int32_t* __restrict__ a,
   }
 }
 
-// The terms of a sum.  K11: term k of row r of a.  K12: one row,
-// term k = eq[k] * (inner[k] - out[k]).
+// out[:, r] = sum_k a[r, k] mod p for r < rows, k < n; limb l of term
+// (r, k) at a + r*rs + k*es + l*ls.  Segment seg of the layout covers
+// terms [c*chunk, (c+1)*chunk) of one row (ROWS_FAST = 0: row seg /
+// chunks) or of 32 rows (ROWS_FAST = 1: rows 32*(seg / chunks) + lane),
+// c = seg % chunks.  partials: one 8-word sum per (row, chunk);
+// counters: one per row (or group of 32 rows), 0 between launches.
+// a tensor's terms: term k of row r at a + r*rs + k*es, limb l at + l*ls.
+// One struct argument: with the pointer and strides as four arguments
+// ptxas takes 40 registers in place of 48 and the sum runs 8-20 % slower
+// on an H100 (0.058 against 0.048 ms over 2^20 terms).
 struct Terms {
-  const int32_t* a;  // K11: a; K12: eq
-  const int32_t* b;  // K12: inner
-  const int32_t* c;  // K12: out
-  long long a_ls, a_es, b_ls, b_es, c_ls, c_es;
-  long long rs;      // K11: the row stride
+  const int32_t* a;
+  long long ls, es, rs;
 };
 
-template <int FINISH>
-__device__ __forceinline__ jt::Fe term(const Terms& t, long long r,
-                                       long long k, const jt::Field& F) {
-  if (FINISH) {
-    const jt::Fe d = jt::fsub(jt::load_limbs(t.b + k * t.b_es, t.b_ls),
-                              jt::load_limbs(t.c + k * t.c_es, t.c_ls), F);
-    return jt::fmul(jt::load_limbs(t.a + k * t.a_es, t.a_ls), d, F);
-  }
-  return jt::load_limbs(t.a + r * t.rs + k * t.a_es, t.a_ls);
-}
-
-__device__ __forceinline__ jt::Fe warp_sum(jt::Fe v, const jt::Field& F) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    jt::Fe o;
-#pragma unroll
-    for (int k = 0; k < 8; k++)
-      o.w[k] = __shfl_down_sync(0xffffffffu, v.w[k], off);
-    v = jt::fadd(v, o, F);
-  }
-  return v;
-}
-
-__device__ __forceinline__ void put_words(uint32_t* dst, const jt::Fe& v) {
-#pragma unroll
-  for (int k = 0; k < 8; k++) dst[k] = v.w[k];
-}
-
-__device__ __forceinline__ jt::Fe get_words(const uint32_t* src) {
-  jt::Fe v;
-#pragma unroll
-  for (int k = 0; k < 8; k++) v.w[k] = __ldcg(src + k);
-  return v;
-}
-
-// out[:, r] = sum_k term(r, k) mod p for r < rows, k < n.  Segment seg of
-// the layout covers terms [c*chunk, (c+1)*chunk) of one row (ROWS_FAST = 0:
-// row seg / chunks) or of 32 rows (ROWS_FAST = 1: rows 32*(seg / chunks)
-// + lane), c = seg % chunks.  partials: one 8-word sum per (row, chunk);
-// counters: one per row (or group of 32 rows), 0 between launches.
-template <int FINISH>
 __global__ void __launch_bounds__(OPS_THREADS)
 field_sum_kernel(Terms t, long long rows, long long n, long long chunk,
                  long long chunks, int rows_fast,
@@ -145,11 +104,11 @@ field_sum_kernel(Terms t, long long rows, long long n, long long chunk,
     if (rows_fast) {
       if (live)
         for (long long k = k0; k < k1; k++)
-          acc = jt::fadd(acc, term<FINISH>(t, r, k, F), F);
+          acc = jt::fadd(acc, jt::load_limbs(t.a + r * t.rs + k * t.es, t.ls), F);
     } else {
       for (long long k = k0 + lane; k < k1; k += 32)
-        acc = jt::fadd(acc, term<FINISH>(t, r, k, F), F);
-      acc = warp_sum(acc, F);     // lane 0 holds the segment's sum
+        acc = jt::fadd(acc, jt::load_limbs(t.a + r * t.rs + k * t.es, t.ls), F);
+      acc = jt::warp_sum(acc, F);     // lane 0 holds the segment's sum
     }
     const bool writer = rows_fast ? live : lane == 0;
     if (chunks == 1) {
@@ -157,7 +116,7 @@ field_sum_kernel(Terms t, long long rows, long long n, long long chunk,
       continue;
     }
     if (writer) {
-      put_words(partials + (r * chunks + c) * 8, acc);
+      jt::put_words(partials + (r * chunks + c) * 8, acc);
       __threadfence();
     }
     __syncwarp();
@@ -171,11 +130,13 @@ field_sum_kernel(Terms t, long long rows, long long n, long long chunk,
     if (rows_fast) {
       if (live)
         for (long long j = 0; j < chunks; j++)
-          acc = jt::fadd(acc, get_words(partials + (r * chunks + j) * 8), F);
+          acc = jt::fadd(acc, jt::get_words(partials + (r * chunks + j) * 8),
+                         F);
     } else {
       for (long long j = lane; j < chunks; j += 32)
-        acc = jt::fadd(acc, get_words(partials + (r * chunks + j) * 8), F);
-      acc = warp_sum(acc, F);
+        acc = jt::fadd(acc, jt::get_words(partials + (r * chunks + j) * 8),
+                       F);
+      acc = jt::warp_sum(acc, F);
     }
     if (writer) jt::store_limbs(out + r, o_ls, acc);
     if (lane == 0) counters[g] = 0;
@@ -224,35 +185,10 @@ extern "C" int jt_field_sum(const int32_t* a, int32_t* out, long long rows,
       (chunks - 1) * chunk >= n || chunks * chunk < n)
     return (int)cudaErrorInvalidValue;
   const jt::Field F = jt::make_field(field);
-  Terms t{a, nullptr, nullptr, ls, es, 0, 0, 0, 0, rs};
   const long long groups = rows_fast ? (rows + 31) / 32 : rows;
-  field_sum_kernel<0><<<(unsigned int)warps_blocks(groups * chunks),
-                        OPS_THREADS, 0, (cudaStream_t)stream>>>(
-      t, rows, n, chunk, chunks, (int)rows_fast, partials, counters, out,
-      rows, F);
-  return (int)cudaGetLastError();
-}
-
-// K12.  out[:16] = sum_{k < n} eq[k] * (inner[k] - outs[k]) mod p; limb l
-// of term k of x at x + k*x_es + l*x_ls.  chunk and chunks as for K11 (one
-// row, lanes along it).
-extern "C" int jt_primary_finish(const int32_t* eq, const int32_t* outs,
-                                 const int32_t* inner, int32_t* out,
-                                 long long n, long long eq_ls,
-                                 long long eq_es, long long o_ls,
-                                 long long o_es, long long in_ls,
-                                 long long in_es, long long chunk,
-                                 long long chunks, uint32_t* partials,
-                                 unsigned int* counters, const uint32_t* field,
-                                 void* stream) {
-  if (n < 1 || chunk < 1 || chunks < 1 || (chunks - 1) * chunk >= n ||
-      chunks * chunk < n)
-    return (int)cudaErrorInvalidValue;
-  const jt::Field F = jt::make_field(field);
-  Terms t{eq, inner, outs, eq_ls, eq_es, in_ls, in_es, o_ls, o_es, 0};
-  field_sum_kernel<1><<<(unsigned int)warps_blocks(chunks), OPS_THREADS, 0,
-                        (cudaStream_t)stream>>>(t, 1, n, chunk, chunks, 0,
-                                                partials, counters, out, 1,
-                                                F);
+  field_sum_kernel<<<(unsigned int)warps_blocks(groups * chunks),
+                     OPS_THREADS, 0, (cudaStream_t)stream>>>(
+      Terms{a, ls, es, rs}, rows, n, chunk, chunks, (int)rows_fast,
+      partials, counters, out, rows, F);
   return (int)cudaGetLastError();
 }

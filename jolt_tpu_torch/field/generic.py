@@ -3,8 +3,8 @@
 Instruction `combine_lookups` collation polynomials and subtable MLEs are
 written once over a generic field type: they take either host `FElt`s
 (verifier) or `DevF` device tensors (Surge's prover sumcheck; the Jolt
-VM's primary sumcheck records them once into K13's program instead,
-vm/collation.py).  int/FElt operands are structural constants such as
+VM's primary sumcheck records them once into the round kernel's
+programs instead, vm/collation.py).  int/FElt operands are structural constants such as
 2^b, uploaded once per (field, value, device) as one limb vector and
 broadcast (the kernels read a scalar operand with stride 0).  An upload
 from host memory waits for the card to drain, so collations evaluated

@@ -16,8 +16,9 @@ card to the plain version.
 | field_addsub   | field/device.py _fadd_jit, _fsub_jit (K10, jit) | csrc/field_ops.cu  |
 | field_sum      | field/device.py _fsum_jit (K11, jit)            | csrc/field_ops.cu  |
 
-(paths under jolt_tpu/; K12, the primary sumcheck's point finisher, is
-vm/instruction_lookups.py's `primary_finish`, on K11's sum.)
+(paths under jolt_tpu/; the primary sumcheck's round, with its
+collations and finisher, is vm/instruction_lookups.py's `primary_round`,
+csrc/collate.cu.)
 """
 from __future__ import annotations
 
@@ -64,7 +65,7 @@ FIELD_SUM = nat.CudaKernel(
     "field_sum", "field_ops", "jt_field_sum",
     [nat.vptr] * 2 + [nat.i64] * 8 + [nat.vptr] * 2 + [nat.u32p, nat.vptr],
     "jolt_tpu/field/device.py:401-403 _fsum_jit (jax.jit)",
-    "field_sum_kernel<0>", 256)
+    "field_sum_kernel", 256)
 
 GP_WARPS = 8          # warps per K2 block (GP_THREADS / 32 in gp_pair.cu)
 GP_MIN_BLOCKS = 2     # K2 blocks per SM (its launch bound in gp_pair.cu)
@@ -417,7 +418,7 @@ def field_addsub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
 # K11: the modular sum along one logical axis
 # ---------------------------------------------------------------------------
 
-SUM_WAVE_WARPS = H100_SMS * 32  # warps that K11/K12 aim to keep running:
+SUM_WAVE_WARPS = H100_SMS * 32  # warps that K11 aims to keep running:
 #   a row is cut into chunks until about this many segments exist
 SUM_MIN_CHUNK = 128            # terms of a chunk, lanes along a row
 SUM_MIN_CHUNK_ROWS = 4         # terms of a chunk, lanes across rows
@@ -429,7 +430,7 @@ def field_sum_plain(spec: FieldSpec, a: torch.Tensor, axis: int
 
 
 def sum_plan(rows: int, n: int, rows_fast: bool) -> tuple[int, int]:
-    """K11/K12's cut of `rows` sums of n terms: (chunk, chunks), the terms
+    """K11's cut of `rows` sums of n terms: (chunk, chunks), the terms
     of one segment and the segments of one row.  With rows_fast a warp
     sums 32 rows (a lane each), else one.  A row is cut until about
     SUM_WAVE_WARPS segments exist, into chunks of at least SUM_MIN_CHUNK
@@ -448,7 +449,8 @@ _SUM_SCRATCH: dict[tuple[torch.device, int], list[torch.Tensor]] = {}
 
 
 def sum_scratch(like: torch.Tensor, rows: int, chunks: int):
-    """K11/K12's partial sums and per-row tickets on `like`'s device, as
+    """K11's partial sums and per-row tickets (the round kernel's partials
+    and ticket: one row, a chunk per block) on `like`'s device, as
     kernel arguments (partials, counters); null pointers where one chunk
     a row needs neither.  Both are kept per stream, as K2's ticket: a
     stream runs its launches in order, so the next launch finds the

@@ -42,7 +42,7 @@ from ..subprotocols.grand_product import (BatchedDenseGrandProduct,
 from ..subprotocols.sumcheck import SumcheckInstanceProof, VerificationError
 from ..transcript import Transcript
 from ..utils.math import log2_strict
-from .collation import collate
+from . import collation
 
 PRIMARY_PROTOCOL = b"Jolt instruction lookups"
 MEMCHECK_PROTOCOL = b"Instruction lookups check"
@@ -195,38 +195,17 @@ def generate_witness(pre: InstructionLookupsPreprocessing,
 # primary sumcheck
 # ---------------------------------------------------------------------------
 
-def _primary_round_evals(pre: InstructionLookupsPreprocessing, eq, out, fl, e
-                         ) -> torch.Tensor:
-    """Round evaluations at t = 0..degree -> [16, degree + 1]
-    (jolt_tpu's `_primary_round_evals_decomposed`, shrinking arrays): the
-    top variable is split into lo/hi halves (views), points t >= 2
-    extrapolate by adding hi - lo (K10), and each point sums eq_t *
-    (sum_k f_t[k] * g_k(E_t) - out_t) over the half-hypercube (the
-    collations and their sum on K13, the finisher on K12)."""
-    spec = pre.spec
-    h = eq.shape[-1] // 2
-    lo = [t[..., :h] for t in (eq, out, fl, e)]
-    hi = [t[..., h:] for t in (eq, out, fl, e)]
-    diff = [fd.fsub(spec, b, a) for a, b in zip(lo, hi)]
-    evals = []
-    cur = lo
-    for t in range(pre.sumcheck_degree + 1):
-        if t == 1:
-            cur = hi
-        elif t >= 2:
-            cur = [fd.fadd(spec, c, d) for c, d in zip(cur, diff)]
-        eq_t, out_t, f_t, e_t = cur
-        evals.append(primary_finish(spec, eq_t, out_t, collate(pre, e_t, f_t)))
-    return torch.stack(evals, dim=1)
-
-
-# K12: the point's finisher, sum_i eq_t[i] * (inner[i] - out_t[i]), in one
-# launch (csrc/field_ops.cu `field_sum_kernel<1>`, on K11's sum)
-PRIMARY_FINISH = nat.CudaKernel(
-    "primary_finish", "field_ops", "jt_primary_finish",
-    [nat.vptr] * 4 + [nat.i64] * 9 + [nat.vptr] * 2 + [nat.u32p, nat.vptr],
-    "jolt_tpu/vm/instruction_lookups.py:268 _point_finish_jit (jax.jit)",
-    "field_sum_kernel<1>", 256)
+# The round kernel (csrc/collate.cu `primary_round_kernel`): a round's
+# evaluations in one launch, in place of jolt_tpu's split, extrapolation,
+# per-instruction g-term and finisher programs
+PRIMARY_ROUND = nat.CudaKernel(
+    "primary_round", "collate", "jt_primary_round",
+    [nat.vptr] * 4 + [nat.i64] * 15 + [nat.vptr] * 3 + [nat.i64] * 4
+    + [nat.vptr] * 3 + [nat.u32p, nat.vptr],
+    "jolt_tpu/vm/instruction_lookups.py:279-309 "
+    "_primary_round_evals_decomposed (jax.jit: _primary_split_jit :235, "
+    "_primary_ext_jit :249, _g_term_jit :258, _point_finish_jit :268)",
+    "primary_round_kernel", 256)
 
 
 def primary_finish_plain(spec: FieldSpec, eq: torch.Tensor, out: torch.Tensor,
@@ -238,29 +217,96 @@ def primary_finish_plain(spec: FieldSpec, eq: torch.Tensor, out: torch.Tensor,
         spec, inner, out)), -1)
 
 
-def primary_finish(spec: FieldSpec, eq: torch.Tensor, out: torch.Tensor,
-                   inner: torch.Tensor) -> torch.Tensor:
-    """primary_finish_plain's function: one K12 launch on CUDA tensors
-    [16, h] (views with any limb and element strides go in as they are),
-    the plain version on CPU tensors."""
-    if eq.device.type == out.device.type == inner.device.type == "cpu":
-        return primary_finish_plain(spec, eq, out, inner)
-    nat.require_cuda("primary_finish", eq, out, inner)
+def primary_round_plain(pre: InstructionLookupsPreprocessing, eq, out, fl, e
+                        ) -> torch.Tensor:
+    """Round evaluations at t = 0..degree -> [16, degree + 1] (jolt_tpu's
+    `_primary_round_evals_decomposed`, shrinking arrays) in plain limb
+    arithmetic: the top variable split into lo/hi halves (views), points
+    t >= 2 extrapolated by adding hi - lo, and at each point the
+    collations through the group plan (collation.collate_grouped_plain)
+    and the finisher sum_i eq_t * (inner - out_t)."""
+    spec = pre.spec
+    h = eq.shape[-1] // 2
+    lo = [t[..., :h] for t in (eq, out, fl, e)]
+    hi = [t[..., h:] for t in (eq, out, fl, e)]
+    diff = [arith.sub(spec, b, a) for a, b in zip(lo, hi)]
+    evals = []
+    cur = lo
+    for t in range(pre.sumcheck_degree + 1):
+        if t == 1:
+            cur = hi
+        elif t >= 2:
+            cur = [arith.add(spec, c, d) for c, d in zip(cur, diff)]
+        eq_t, out_t, f_t, e_t = cur
+        evals.append(primary_finish_plain(
+            spec, eq_t, out_t, collation.collate_grouped_plain(pre, e_t,
+                                                               f_t)))
+    return torch.stack(evals, dim=1)
+
+
+STAGE_COST = 0.25     # a round block's staging, in points' work (the
+#   round plan's cost model: a point of rv32i_vm()'s rows is some 10 us of
+#   an SM at h = 2^15, its stage some 2-3 us)
+
+
+def round_plan(pre, n: int) -> tuple[int, int, int, int]:
+    """The round kernel's grid for a hypercube of n = 2h entries: (points,
+    split, tiles of 32 elements, blocks = tiles x split).  Each tile is
+    shared by `split` blocks, block b of them taking the points b, b +
+    split, ...; split is the one whose waves of one block an SM, each as
+    long as its block's points and stage, end first (the smaller on a
+    tie): at h = 2^15 one block a tile walks every point, at the last
+    rounds the points run side by side."""
+    points = pre.sumcheck_degree + 1
+    tiles = -(-(n // 2) // 32)
+
+    def cost(split):
+        return -(-tiles * split // fk.H100_SMS) * (-(-points // split)
+                                                   + STAGE_COST)
+
+    split = min(range(1, points + 1), key=lambda s: (cost(s), s))
+    return points, split, tiles, tiles * split
+
+
+def _strides3(t: torch.Tensor) -> tuple[int, int, int]:
+    """(limb, column, element) strides of [16, n] or [16, c, n]."""
+    if t.dim() == 2:
+        return t.stride(0), 0, t.stride(1)
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def primary_round(pre: InstructionLookupsPreprocessing, eq, out, fl, e
+                  ) -> torch.Tensor:
+    """primary_round_plain's function: on CUDA tensors one launch of the
+    round kernel, which extrapolates, collates, finishes and sums every
+    point (eq, out [16, 2h], flags [16, NI, 2h], E [16, m, 2h], views with
+    any strides, a mesh shard's included); the plain version on CPU
+    tensors.  Returns [16, degree + 1], reduced."""
+    if all(t.device.type == "cpu" for t in (eq, out, fl, e)):
+        return primary_round_plain(pre, eq, out, fl, e)
+    nat.require_cuda("primary_round", eq, out, fl, e)
+    prog = collation.program(pre)
+    collation.check_operands("primary_round", prog, e, fl)
+    n = eq.shape[-1]
     if eq.dim() != 2 or eq.shape[0] != fd.L or out.shape != eq.shape or \
-            inner.shape != eq.shape:
-        raise ValueError(f"primary_finish: expected equal [16, h], got "
-                         f"{[tuple(t.shape) for t in (eq, out, inner)]}")
-    n = eq.shape[1]
-    res = torch.empty(fd.L, dtype=torch.int32, device=eq.device)
-    if n == 0:
-        return res.zero_()
-    chunk, chunks = fk.sum_plan(1, n, False)
-    partials, counters = fk.sum_scratch(eq, 1, chunks)
-    PRIMARY_FINISH.launch(
-        nat.ptr(eq), nat.ptr(out), nat.ptr(inner), nat.ptr(res), n,
-        eq.stride(0), eq.stride(1), out.stride(0), out.stride(1),
-        inner.stride(0), inner.stride(1), chunk, chunks, partials, counters,
-        fk.field_words(spec), nat.stream(res), device=res.device)
+            e.shape[2] != n or n < 2 or n % 2:
+        raise ValueError(f"primary_round: expected eq, out [16, n], n even, "
+                         f"and flags, E [16, *, n], got "
+                         f"{[tuple(t.shape) for t in (eq, out, fl, e)]}")
+    plan = prog.plan
+    points, split, tiles, _ = round_plan(pre, n)
+    res = torch.empty((fd.L, points), dtype=torch.int32, device=eq.device)
+    rows, meta, consts = plan.tables(pre.spec, eq.device)
+    # a partial per (point, tile) and one ticket: one row of points * tiles
+    # chunks (points >= 3, so sum_scratch allocates both)
+    partials, counter = fk.sum_scratch(eq, 1, points * tiles)
+    PRIMARY_ROUND.launch(
+        nat.ptr(eq), nat.ptr(out), nat.ptr(fl), nat.ptr(e),
+        *_strides3(eq), *_strides3(out), *_strides3(fl), *_strides3(e),
+        n // 2, points, split, nat.ptr(rows), nat.ptr(meta), nat.ptr(consts),
+        plan.n_groups, len(plan.stage), consts.shape[1], plan.n_slots,
+        partials, counter, nat.ptr(res), fk.field_words(pre.spec),
+        nat.stream(res), device=res.device)
     return res
 
 
@@ -366,7 +412,7 @@ def prove_instruction_lookups(pre: InstructionLookupsPreprocessing,
 
     def round_evals(eq, out, fl, e):
         return sh.round_evals(
-            spec, lambda *ts: _primary_round_evals(pre, *ts), (eq, out, fl, e))
+            spec, lambda *ts: primary_round(pre, *ts), (eq, out, fl, e))
 
     def bind(ts, r):
         return sh.bind_hypercube(spec, ts, r, mle.bind_top)

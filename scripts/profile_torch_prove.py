@@ -26,7 +26,8 @@ One warm-up prove and one unprofiled prove, then:
   1. one prove under torch.profiler (CPU and CUDA activities): wall time,
      the time the card spent in kernels (the union of their intervals),
      its idle share, device time by kernel name, and the summed device
-     time and launches of each of the port's kernels (K1-K13);
+     time and launches of each of the port's kernels (K1-K11 and the
+     primary round);
   2. one prove under cProfile: host time by function (cumulative), which
      names the protocol phases (witness, commit, sumchecks, memory
      checking, openings) and the host work inside them (transcript, limb

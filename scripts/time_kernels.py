@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernels, one checkout at a time, by one method.
 
-    python3 scripts/time_kernels.py [--root DIR] [--only fs]
+    python3 scripts/time_kernels.py [--root DIR] [--only fs|round]
 
 on a CUDA card.  Imports jolt_tpu_torch from DIR (default: this
 checkout), builds its kernel libraries, and times each kernel wrapper with
@@ -16,9 +16,15 @@ challenge, 110 challenges) and 1,000 appends, and K9 at d = 2 and 3 with
 the hint and d = 8 without.  K8 and K9 are timed twice: on the card alone
 (`event_ms` holds the card while the host enqueues) and with the host's
 enqueue time in the way (`hold=False`, the earlier method).  `--only
-fs` times K8 and K9 alone.  The wrappers' signatures are the same in
-every checkout of the port, so two checkouts timed in turns on one card
-(A, B, B, A) compare by the same clock and the same method.
+fs` times K8 and K9 alone.  `--only round` times one primary-sumcheck
+round of rv32i_vm() (29 instructions, 55 memories, degree 8) at h =
+2^15, 2^12, 2 and 1: the checkout's `primary_round` (one launch), or in
+a checkout without it `_primary_round_evals` (9 collation launches, 9
+finisher launches and 32 K10 launches a round); 5 rounds a timing, so
+that the card's hold outlasts the host's enqueue of the older round's 50
+launches.  The wrappers' signatures are the same in every checkout of
+the port, so two checkouts timed in turns on one card (A, B, B, A)
+compare by the same clock and the same method.
 
 Prints the card's name and power limit, a line per shape, and last a
 JSON line {"root": DIR, "card": ..., "ms": {shape: ms}}.  Imports
@@ -39,8 +45,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose jolt_tpu_torch is timed")
-    ap.add_argument("--only", choices=("all", "fs"), default="all",
-                    help="fs: K8 and K9 alone")
+    ap.add_argument("--only", choices=("all", "fs", "round"), default="all",
+                    help="fs: K8 and K9 alone; round: the primary round")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -85,6 +91,10 @@ def main() -> None:
         ms[label] = smoke.event_ms(fn, 10)
         print(f"{label}: {ms[label]:.4f} ms", flush=True)
 
+    if args.only == "round":
+        round_rows(ms, smoke, fe, FR, dev)
+        print(json.dumps({"root": str(args.root), "card": card, "ms": ms}))
+        return
     if args.only == "all":
         k1_to_k7_rows(FR, FQ, fe, layers, rc, row, fk, ck)
     state = torch.randint(0, 1 << 32, (9,), generator=gen, device=dev,
@@ -106,6 +116,31 @@ def main() -> None:
                                                     else ""), smoke,
                lambda: fsd.fs_round(FR, evals, prev, state, d, hint))
     print(json.dumps({"root": str(args.root), "card": card, "ms": ms}))
+
+
+def round_rows(ms, smoke, fe, FR, dev):
+    """One primary round of rv32i_vm() at h = 2^15, 2^12, 2 and 1, by the
+    checkout's round function, with its launches per round."""
+    import torch
+    from jolt_tpu_torch import _native as nat
+    from jolt_tpu_torch.instructions import RV32I_INSTRUCTIONS
+    from jolt_tpu_torch.vm import instruction_lookups as il
+    from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES
+    pre = il.InstructionLookupsPreprocessing(
+        RV32I_INSTRUCTIONS, RV32I_SUBTABLES, 4, 1 << 16, dev, FR)
+    fn = getattr(il, "primary_round", None) or il._primary_round_evals
+    for h in (1 << 15, 1 << 12, 2, 1):
+        ts = (fe(FR, 2 * h), fe(FR, 2 * h), fe(FR, 29, 2 * h),
+              fe(FR, 55, 2 * h))
+        fn(pre, *ts)
+        torch.cuda.synchronize()
+        before = sum(nat.launch_counts().values())
+        fn(pre, *ts)
+        launches = sum(nat.launch_counts().values()) - before
+        label = f"round h = 2^{h.bit_length() - 1} ({fn.__name__})"
+        ms[label] = smoke.event_ms(lambda: fn(pre, *ts), 5, warm=True)
+        print(f"{label}: {ms[label]:.4f} ms, {launches} launches a round",
+              flush=True)
 
 
 def fs_row(ms, label, smoke, fn):

@@ -1,12 +1,18 @@
-"""The primary sumcheck's collation program (vm/collation.py, K13's
-function) on the port's CPU path against jolt_tpu.
+"""The primary sumcheck's collation programs (vm/collation.py, the round
+kernel's collations) on the port's CPU path against jolt_tpu.
 
 - each of rv32i_vm()'s 29 instructions alone (C = 4, M = 2^16), all 29
   together in rv32i_vm()'s memory layout (55 memories), and the narrow
-  VM's 23 at M = 2^8: the recorded program run on host ints, the plain
-  version `collate_plain` and the wrapper `collate` (CPU tensors) all give
-  sum_k f_k * g_k(E), which jolt_tpu's `combine_lookups` computes on its
-  host `FElt`;
+  VM's 23 at M = 2^8: the recorded program run on host ints, its plain
+  version `collate_plain` and the group plan's `collate_grouped_plain`
+  all give sum_k f_k * g_k(E), which jolt_tpu's `combine_lookups`
+  computes on its host `FElt`;
+- the group plan of rv32i_vm(), the narrow VM and the mini VM (fib's ADD
+  and BNE): every instruction in exactly one group, G = min(8,
+  instructions), each group's slots within the kernel's cap, its chain
+  levels its rows' products and adds, the groups balanced as the
+  longest-first packing leaves them, and its partial sums adding up to
+  `collate_plain` on edge residues;
 - the program is recorded once per (instructions, memories, C, M, field)
   and its tables uploaded once per device.
 Operands are random residues from numpy seeds, with elements whose every
@@ -116,7 +122,7 @@ def _check_against_jolt_tpu(pre, seed, h=6):
     plain = collation.collate_plain(pre, e_t, f_t)
     assert plain.shape == (16, h) and plain.dtype == torch.int32
     assert _canonical(FR, plain) == host
-    assert torch.equal(collation.collate(pre, e_t, f_t), plain)
+    assert torch.equal(collation.collate_grouped_plain(pre, e_t, f_t), plain)
     return prog
 
 
@@ -130,8 +136,9 @@ def test_each_rv32i_instruction_matches_jolt_tpu(name):
 
 
 def test_rv32i_vm_program_matches_jolt_tpu():
-    """All 29 in rv32i_vm()'s layout (55 memories): the program K13 runs
-    on the main path, with the counts its bound is computed from."""
+    """All 29 in rv32i_vm()'s layout (55 memories): the program whose
+    group plan the round kernel runs on the main path, with the counts
+    its bound is computed from."""
     assert [c.name for c in RV32I_INSTRUCTIONS] == \
         [c.name for c in J_INSTRUCTIONS]
     prog = _check_against_jolt_tpu(_pre(RV32I_INSTRUCTIONS, M_FULL), seed=29)
@@ -149,7 +156,8 @@ def test_narrow_vm_program_matches_jolt_tpu():
 
 def test_program_recorded_and_uploaded_once(monkeypatch):
     """A second call (another preprocessing of the same instructions
-    included) records nothing and uploads nothing; another field or
+    included) records nothing and uploads nothing (the program's
+    constants once, the group plan's tables once); another field or
     another M is another program."""
     classes = narrow_instructions(RV32I_INSTRUCTIONS)[:6]
     pre = _pre(classes, M_NARROW)
@@ -164,14 +172,20 @@ def test_program_recorded_and_uploaded_once(monkeypatch):
                         lambda *a: recorded.append(a) or record(*a))
     monkeypatch.setattr(fd, "pack_ints",
                         lambda *a: packed.append(a) or pack_ints(*a))
-    first = collation.collate(pre, e_t, f_t)
+    first = collation.collate_plain(pre, e_t, f_t)
     assert (len(recorded), len(packed)) == (1, 1)
-    tables = collation.program(pre).tables(torch.device("cpu"))
+    cpu = torch.device("cpu")
+    tables = collation.program(pre).plan.tables(FR, cpu)
+    assert len(packed) == 2
     for again in (pre, _pre(classes, M_NARROW)):
-        assert torch.equal(collation.collate(again, e_t, f_t), first)
-    assert (len(recorded), len(packed)) == (1, 1)
+        assert torch.equal(collation.collate_plain(again, e_t, f_t), first)
+        assert torch.equal(collation.collate_grouped_plain(again, e_t, f_t),
+                           first)
+    assert (len(recorded), len(packed)) == (1, 2)
+    assert collation.program(pre).consts_table(cpu) is \
+        collation.program(pre).consts_table("cpu")
     assert all(a is b for a, b in zip(
-        tables, collation.program(pre).tables(torch.device("cpu"))))
+        tables, collation.program(pre).plan.tables(FR, cpu)))
     collation.program(_pre(classes, M_NARROW, spec=fq_spec()))
     collation.program(_pre(classes[:3], M_NARROW))
     assert len(recorded) == 3 and len(collation._PROGRAMS) == 3
@@ -192,3 +206,87 @@ def test_slots_are_reused_by_liveness():
     assert [r[1] for r in placed] == [0, 1, 2, 0, 0]
     assert placed[3][2:] == (ref(S, 1), ref(S, 0))
     assert (out, n_slots) == (0, 3)
+
+
+def _fib_classes():
+    by = {c.name: c for c in RV32I_INSTRUCTIONS}
+    return [by["add"], by["bne"]]
+
+
+VMS = {"rv32i": (lambda: list(RV32I_INSTRUCTIONS), M_FULL, 8),
+       "narrow": (lambda: narrow_instructions(RV32I_INSTRUCTIONS), M_NARROW,
+                  8),
+       "fib": (_fib_classes, M_NARROW, 2)}
+
+
+@pytest.mark.parametrize("vm", VMS)
+def test_group_plan(vm):
+    """Every instruction in one group; G as the plan's rule gives it; each
+    group's rows read only staged columns, constants and its own slots,
+    within the cap; its levels its rows' products and adds; the packing
+    leaves no group longer than the shortest plus the largest item."""
+    classes_of, M, G = VMS[vm]
+    classes = classes_of()
+    pre = _pre(classes, M)
+    prog = collation.program(pre)
+    plan = prog.plan
+    assert plan.n_groups == G == min(collation.MAX_GROUPS, len(classes))
+    assert sorted(k for g in plan.groups for k in g) == \
+        list(range(len(classes)))
+    assert all(list(g) == sorted(g) and g for g in plan.groups)
+    assert plan.stage[:2] == ((collation.EQ, 0), (collation.OUT, 0))
+    assert [c for t, c in plan.stage if t == collation.MEMS] == \
+        list(prog.columns)
+    mask = (1 << collation.KIND_SHIFT) - 1
+    for rows, n_slots, out, levels in zip(plan.group_rows, plan.group_slots,
+                                          plan.group_outs, plan.levels):
+        assert 1 <= n_slots <= collation.MAX_SLOTS and 0 <= out < n_slots
+        for op, dst, a, b in rows:
+            assert op in (collation.ADD, collation.SUB, collation.MUL)
+            assert 0 <= dst < n_slots
+            for r in (a, b):
+                kind, idx = r >> collation.KIND_SHIFT, r & mask
+                assert kind in (collation.STAGE, collation.CONST,
+                                collation.SLOT)
+                assert idx < {collation.STAGE: len(plan.stage),
+                              collation.CONST: len(plan.consts),
+                              collation.SLOT: n_slots}[kind]
+        products = sum(op == collation.MUL for op, _, _, _ in rows)
+        assert levels == products * collation.PRODUCT_LEVELS + \
+            (len(rows) - products) * collation.ADD_LEVELS
+    # the groups hold the program's rows, and a running add per extra
+    # instruction of a group in place of the program's sum
+    assert sum(map(len, plan.group_rows)) == len(prog.rows) - G + 1
+    assert sum(plan.products) == prog.products
+    assert plan.slot_bases == tuple(sum(plan.group_slots[:g])
+                                    for g in range(G))
+    assert plan.n_slots == sum(plan.group_slots)
+    # each group's levels: its instructions' own (each recorded alone)
+    # and an add per extra instruction; longest first leaves no group
+    # longer than the shortest by more than the largest instruction
+    own = []
+    for cls in classes:
+        n_mem = sum(len(idx) for _, idx in cls().subtables(C, M))
+        alone = collation.program(_pre([cls], M, [list(range(n_mem))]))
+        own.append(alone.products * collation.PRODUCT_LEVELS
+                   + alone.adds * collation.ADD_LEVELS)
+    for ks, levels in zip(plan.groups, plan.levels):
+        assert levels == sum(own[k] for k in ks) + \
+            (len(ks) - 1) * collation.ADD_LEVELS
+    assert max(plan.levels) <= min(plan.levels) + max(own) + \
+        collation.ADD_LEVELS
+
+
+@pytest.mark.parametrize("vm", VMS)
+def test_grouped_program_matches_collate_plain(vm):
+    """The groups' partial sums added mod p equal the one program's inner
+    bit for bit, on edge residues (0, 1, p - 1 in every operand) and
+    random ones."""
+    classes_of, M, _ = VMS[vm]
+    pre = _pre(classes_of(), M)
+    rng = np.random.default_rng(len(vm))
+    m = 1 + max(mi for mk in pre.instruction_to_memory_indices for mi in mk)
+    e_t = _mont(FR, _values(rng, m, 6, FR.p))
+    f_t = _mont(FR, _values(rng, len(pre.instruction_classes), 6, FR.p))
+    assert torch.equal(collation.collate_grouped_plain(pre, e_t, f_t),
+                       collation.collate_plain(pre, e_t, f_t))

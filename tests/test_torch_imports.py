@@ -9,9 +9,9 @@ to the CPU.
 - no source of the port, and not chip_smoke.py, imports them;
 - an entry point called with no CUDA card and no device="cpu" raises;
 - a kernel wrapper handed tensors that are not on the CPU (K1-K7, the
-  device Fiat-Shamir's K8 and K9, the field programs K10-K12, also
-  through fd.fadd, fsub, fneg and fsum, and the collations' K13, also
-  with one operand on the CPU) launches its
+  device Fiat-Shamir's K8 and K9, the field programs K10 and K11, also
+  through fd.fadd, fsub, fneg and fsum, and the primary round's kernel,
+  also with some operands on the CPU) launches its
   kernel or raises: it never runs its plain version instead, and neither
   do the windowed MSM, Hyrax, Zeromorph, the grand-product commit or the
   Quarks product tree.
@@ -48,7 +48,6 @@ from jolt_tpu_torch.subprotocols import fs_device as fsd
 from jolt_tpu_torch.subprotocols.grand_product_quarks import QuarkGrandProduct
 from jolt_tpu_torch.utils import keccak_device as kd
 from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES
-from jolt_tpu_torch.vm import collation
 from jolt_tpu_torch.vm import instruction_lookups as il
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -161,13 +160,13 @@ def _meta(*shape):
     return torch.zeros(shape, dtype=torch.int32, device="meta")
 
 
-# what collate reads of the fib VM's lookup preprocessing (ADD, BNE; C =
-# 4, M = 2^8; 6 memories)
+# what the primary round reads of the fib VM's lookup preprocessing (ADD,
+# BNE; C = 4, M = 2^8; 6 memories)
 _FIB_LOOKUPS = SimpleNamespace(
     instruction_classes=[AddInstruction, BneInstruction],
     instruction_to_memory_indices=il.memory_layout(
         [AddInstruction, BneInstruction], RV32I_SUBTABLES, 4, 1 << 8)[3],
-    C=4, M=1 << 8, spec=fr_spec())
+    C=4, M=1 << 8, spec=fr_spec(), sumcheck_degree=3)
 
 _WRAPPERS = {
     "mont_mul": lambda: fk.mont_mul(fr_spec(), _meta(16, 8), _meta(16, 8)),
@@ -194,13 +193,16 @@ _WRAPPERS = {
     "fd.fneg": lambda: fd.fneg(fr_spec(), _meta(16, 8)),
     "field_sum": lambda: fk.field_sum(fr_spec(), _meta(16, 4, 8), 0),
     "fd.fsum": lambda: fd.fsum(fr_spec(), _meta(16, 8), -1),
-    "primary_finish": lambda: il.primary_finish(
-        fr_spec(), _meta(16, 8), _meta(16, 8), _meta(16, 8)),
-    "collate": lambda: collation.collate(_FIB_LOOKUPS, _meta(16, 6, 8),
-                                         _meta(16, 2, 8)),
-    "collate, flags on the CPU": lambda: collation.collate(
-        _FIB_LOOKUPS, _meta(16, 6, 8), torch.zeros((16, 2, 8),
-                                                   dtype=torch.int32)),
+    "primary_round": lambda: il.primary_round(
+        _FIB_LOOKUPS, _meta(16, 8), _meta(16, 8), _meta(16, 2, 8),
+        _meta(16, 6, 8)),
+    "primary_round, flags on the CPU": lambda: il.primary_round(
+        _FIB_LOOKUPS, _meta(16, 8), _meta(16, 8),
+        torch.zeros((16, 2, 8), dtype=torch.int32), _meta(16, 6, 8)),
+    "primary_round, all but eq on the CPU": lambda: il.primary_round(
+        _FIB_LOOKUPS, _meta(16, 8), *(torch.zeros(s, dtype=torch.int32)
+                                      for s in ((16, 8), (16, 2, 8),
+                                                (16, 6, 8)))),
 }
 
 

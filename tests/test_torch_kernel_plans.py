@@ -1,4 +1,6 @@
-"""K2's launch plan (field/kernels.py `gp_evals_plan`) on the CPU.
+"""K2's launch plan (field/kernels.py `gp_evals_plan`) and the primary
+round kernel's (vm/instruction_lookups.py `round_plan`, the group plan's
+threads and shared memory) on the CPU.
 
 The kernel (csrc/gp_pair.cu `gp_pair_evals_kernel`) maps block k, warp w
 and lane to circuit group g = (k % shared) * per_block + w % per_block,
@@ -8,7 +10,10 @@ for j = 0, 1, ..., pair index tile * 32 + lane, and circuits g, g + groups,
 every (circuit, pair index) is covered exactly once, within the kernel's
 limits, for every batch size the provers use and every round size, and
 that a batch above one launch's cap is split so that each circuit is
-summed once.
+summed once.  For the round kernel: every (tile, point) of a round is
+taken by exactly one block, the blocks' threads are 32 per group, at most
+256, and the group plan's shared memory, as csrc/collate.cu computes it,
+fits the H100's 227 KB for rv32i_vm(), the narrow VM and the mini VM.
 """
 import re
 from pathlib import Path
@@ -125,15 +130,15 @@ def _constexprs(src: str) -> dict[str, int]:
 def test_launch_constants_match_the_sources():
     """Each kernel's CUDA function and threads per block, K2's plan
     constants, K8's and K9's limits (segments, the events K8's shared
-    memory holds, K9's shared memory at each degree) and K13's slots and
-    operand encoding, as the Python side keeps them, agree with the
-    sources."""
+    memory holds, K9's shared memory at each degree) and the round
+    kernel's groups, slots, operand encoding and shared memory, as the
+    Python side keeps them, agree with the sources."""
     from jolt_tpu_torch.subprotocols import fs_device  # noqa: F401 (K9)
     from jolt_tpu_torch.utils import keccak_device  # noqa: F401 (K8)
-    from jolt_tpu_torch.vm import collation  # K13
-    from jolt_tpu_torch.vm import instruction_lookups  # noqa: F401 (K12)
+    from jolt_tpu_torch.vm import collation
+    from jolt_tpu_torch.vm import instruction_lookups as il  # the round
     csrc = Path(nat.__file__).resolve().parent / "csrc"
-    assert len(nat.KERNELS) == 13
+    assert len(nat.KERNELS) == 12
     for k in nat.KERNELS:
         src = (csrc / f"{k.source}.cu").read_text()
         fn = k.function.split("<")[0]
@@ -152,6 +157,71 @@ def test_launch_constants_match_the_sources():
     for d in (1, 2, 3, 8, 9, 12, 37, 38, 80):
         assert eval(" ".join(body.split()), {}, {"degree": d}) == \
             fs_device.k9_smem_bytes(d)
-    c = _constexprs((csrc / "collate.cu").read_text())
-    assert (c["MAX_SLOTS"], c["KIND_SHIFT"]) == (collation.MAX_SLOTS,
-                                                 collation.KIND_SHIFT)
+    src = (csrc / "collate.cu").read_text()
+    c = _constexprs(src)
+    assert (c["MAX_SLOTS"], c["KIND_SHIFT"], c["MAX_GROUPS"], c["TILE"]) == \
+        (collation.MAX_SLOTS, collation.KIND_SHIFT, collation.MAX_GROUPS, 32)
+    assert c["ROUND_THREADS"] == il.PRIMARY_ROUND.threads == \
+        32 * collation.MAX_GROUPS
+    assert (c["K_CONST"], c["K_SLOT"]) == (collation.CONST, collation.SLOT)
+    assert collation.STAGE not in (collation.CONST, collation.SLOT)
+    body = re.search(r"round_smem_bytes\([^)]*\) \{\s*return ([^;]+);",
+                     src)[1]
+    for pre in _round_pres().values():
+        plan = collation.program(pre).plan
+        assert eval(" ".join(body.split()), {}, {
+            "n_stage": len(plan.stage), "n_slots": plan.n_slots,
+            "n_consts": len(plan.consts)}) == plan.smem_bytes()
+
+
+def _round_pres():
+    """What the round reads of rv32i_vm()'s, the narrow VM's and the mini
+    VM's lookup preprocessing (C = 4; M = 2^16, 2^8, 2^8)."""
+    from types import SimpleNamespace
+    from jolt_tpu_torch.instructions import RV32I_INSTRUCTIONS
+    from jolt_tpu_torch.vm import instruction_lookups as il
+    from jolt_tpu_torch.vm.fixtures import narrow_instructions
+    from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES
+    by = {c.name: c for c in RV32I_INSTRUCTIONS}
+    out = {}
+    for name, classes, M in (
+            ("rv32i", list(RV32I_INSTRUCTIONS), 1 << 16),
+            ("narrow", narrow_instructions(RV32I_INSTRUCTIONS), 1 << 8),
+            ("fib", [by["add"], by["bne"]], 1 << 8)):
+        out[name] = SimpleNamespace(
+            instruction_classes=classes, C=4, M=M, spec=fr_spec(),
+            instruction_to_memory_indices=il.memory_layout(
+                classes, RV32I_SUBTABLES, 4, M)[3],
+            sumcheck_degree=max(c().g_poly_degree(4) for c in classes) + 2)
+    return out
+
+
+@pytest.mark.parametrize("vm", ["rv32i", "narrow", "fib"])
+def test_round_plan_takes_each_point_of_each_tile_once(vm):
+    """Block b of the grid takes tile b // split and the points b % split,
+    b % split + split, ...: every (tile, point) once, each block at least
+    one point, at every round size from 2 to 2^21 entries; at h = 2^15
+    one block a tile, at h <= 2^7 one block a point; the block's threads
+    and shared memory within the card's limits."""
+    from jolt_tpu_torch.vm import collation
+    from jolt_tpu_torch.vm import instruction_lookups as il
+    pre = _round_pres()[vm]
+    plan = collation.program(pre).plan
+    assert 32 * plan.n_groups <= il.PRIMARY_ROUND.threads
+    assert plan.smem_bytes() <= collation.SMEM_LIMIT
+    for n in [2, 4, 6, 62, 64, 66, 1000, *(1 << k for k in range(1, 22))]:
+        points, split, tiles, blocks = il.round_plan(pre, n)
+        assert points == pre.sumcheck_degree + 1
+        assert tiles == -(-(n // 2) // 32) and blocks == tiles * split
+        assert 1 <= split <= points
+        seen = np.zeros((tiles, points), dtype=np.int64)
+        for b in range(min(blocks, 4096)):
+            t = list(range(b % split, points, split))
+            assert t
+            seen[b // split, t] += 1
+        if blocks <= 4096:
+            assert (seen == 1).all()
+        if n == 1 << 16:
+            assert split == 1
+        if n <= 1 << 8:
+            assert split == points

@@ -14,10 +14,12 @@ Fiat-Shamir round) at every degree it takes; K3 taking its challenge from
 the card; K10 (the modular add, subtract, negate) at 1 to 2^20 elements,
 on strided halves and broadcasts and edge residues, refusing int64; K11
 (the modular sum) at lengths 1 to 2^20 along each axis and over many
-rows, twice (its tickets reset); K12 (the primary round's finisher) at h
-= 1 to 2^15; K13 (the collations and their sum at a point) on the round's
-halves and t >= 2 points, h = 1 to 2^15, Fr and Fq, and one launch a
-point of a primary round; each call of K10-K13 one launch.  Every
+rows, twice (its tickets reset); the primary round's kernel (the
+extrapolation, the collations, the finisher and the sum of every point)
+at h = 1 to 2^15 on rv32i_vm(), the narrow VM in Fr and Fq and the mini
+VM, on views of wider tensors, twice (its ticket resets), one launch a
+round, and once a shard on a virtual card mesh; each call of K10, K11
+and the round one launch.  Every
 comparison is of integer
 limbs or transcript bytes: the tolerance is zero.  This file imports nothing of JAX, so on a
 machine without it run it as
@@ -519,8 +521,7 @@ def test_gp_pair_bind_takes_a_challenge_on_the_card(dev):
 
 
 # ---------------------------------------------------------------------------
-# K10, K11, K12: the modular add/sub/neg, the modular sum, and the primary
-# sumcheck's point finisher
+# K10, K11: the modular add/sub/neg and the modular sum
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", SPECS)
@@ -596,96 +597,102 @@ def test_field_sum_rows(dev, shape, axis):
            fk.field_sum_plain(spec, a, axis))
 
 
-@pytest.mark.parametrize("h", [1, 5, 1 << 15])
-def test_primary_finish(dev, h):
-    """K12 at h = 1 and 2^15 (the primary round's first), on the lo halves
-    of [16, 2h] tensors as the round hands them over; twice."""
-    from jolt_tpu_torch.vm import instruction_lookups as il
-    spec = fr_spec()
-    eq2, out2 = _edge(spec, dev, 2 * h, seed=1), _edge(spec, dev, 2 * h, seed=2)
-    inner = _edge(spec, dev, h, seed=3)
-    eq, out = eq2[:, :h], out2[:, :h]
-    want = il.primary_finish_plain(spec, eq, out, inner)
-    for _ in range(2):
-        _equal(_launched(il.PRIMARY_FINISH,
-                         lambda: il.primary_finish(spec, eq, out, inner)),
-               want)
-
-
 # ---------------------------------------------------------------------------
-# K13: the primary sumcheck's collations and their sum at one point
+# The primary round: extrapolation, collations, finisher and sum, one launch
 # ---------------------------------------------------------------------------
 
-def _lookups(spec, M, narrow=False):
-    """What collate reads of rv32i_vm()'s lookup preprocessing (C = 4; at
-    M = 2^8 the narrow VM's 23 instructions)."""
+def _lookups(spec, M, narrow=False, fib=False):
+    """What the round reads of rv32i_vm()'s lookup preprocessing (C = 4; at
+    M = 2^8 the narrow VM's 23 instructions, or the mini VM's ADD and
+    BNE)."""
     from types import SimpleNamespace
     from jolt_tpu_torch.instructions import RV32I_INSTRUCTIONS
     from jolt_tpu_torch.vm import instruction_lookups as il
     from jolt_tpu_torch.vm.fixtures import narrow_instructions
     from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES
-    classes = (narrow_instructions(RV32I_INSTRUCTIONS) if narrow
+    by = {c.name: c for c in RV32I_INSTRUCTIONS}
+    classes = ([by["add"], by["bne"]] if fib else
+               narrow_instructions(RV32I_INSTRUCTIONS) if narrow
                else list(RV32I_INSTRUCTIONS))
     return SimpleNamespace(
         instruction_classes=classes, C=4, M=M, spec=spec,
+        sumcheck_degree=max(c().g_poly_degree(4) for c in classes) + 2,
         instruction_to_memory_indices=il.memory_layout(
             classes, RV32I_SUBTABLES, 4, M)[3])
 
 
-@pytest.mark.parametrize("h", [1, 2, 5, 1 << 15])
+def _round_inputs(spec, dev, pre, n, seed, edge=True):
+    make = _edge if edge else _rand
+    m = 1 + max(max(mk) for mk in pre.instruction_to_memory_indices)
+    return (make(spec, dev, n, seed=seed), make(spec, dev, n, seed=seed + 1),
+            make(spec, dev, len(pre.instruction_classes), n, seed=seed + 2),
+            make(spec, dev, m, n, seed=seed + 3))
+
+
+def _round(pre, ts, n=1):
+    """The round on the card, launched n times (once a call), twice, each
+    equal to its plain version on the same tensors."""
+    from jolt_tpu_torch.vm import instruction_lookups as il
+    want = il.primary_round_plain(pre, *ts)
+    assert want.shape == (16, pre.sumcheck_degree + 1)
+    for _ in range(2):
+        got = _launched(il.PRIMARY_ROUND, lambda: il.primary_round(pre, *ts),
+                        n)
+        _equal(got, want)
+
+
+@pytest.mark.parametrize("h", [1, 5, 1 << 15])
+def test_primary_finish(dev, h):
+    """The round's finisher on the mini VM (ADD, BNE) at h = 1, 5 and
+    2^15: eq and out on edge residues, so inner - out and eq's product
+    wrap; one launch a call, twice (its ticket resets)."""
+    spec = fr_spec()
+    pre = _lookups(spec, 1 << 8, fib=True)
+    _round(pre, _round_inputs(spec, dev, pre, 2 * h, seed=h))
+
+
+@pytest.mark.parametrize("h", [1, 2, 5, 1 << 12, 1 << 15])
 def test_collate(dev, h):
-    """K13 on rv32i_vm()'s 29 instructions (55 memories) at the round's
-    three kinds of point: the lo and hi halves of E [16, 55, 2h] and
-    flags [16, 29, 2h] (views), and contiguous t >= 2 tensors; edge
-    residues; one launch a call, twice (the tables are uploaded once)."""
-    from jolt_tpu_torch.vm import collation
+    """The round on rv32i_vm()'s 29 instructions (55 memories) at the
+    first round's h = 2^15, h = 2^12 and the last rounds, on edge
+    residues: E and the flags as column views of wider tensors, eq and out
+    as element views (stride 2), as the kernel takes any strides."""
     spec = fr_spec()
     pre = _lookups(spec, 1 << 16)
-    e, fl = _edge(spec, dev, 55, 2 * h, seed=h), _edge(spec, dev, 29, 2 * h,
-                                                        seed=h + 1)
-    points = [(e[..., :h], fl[..., :h]), (e[..., h:], fl[..., h:]),
-              (_edge(spec, dev, 55, h, seed=3), _edge(spec, dev, 29, h,
-                                                       seed=4))]
-    for e_t, f_t in points:
-        want = collation.collate_plain(pre, e_t, f_t)
-        for _ in range(2):
-            got = _launched(collation.COLLATE,
-                            lambda: collation.collate(pre, e_t, f_t))
-            assert got.is_contiguous()
-            _equal(got, want)
+    eq, out, fl, e = _round_inputs(spec, dev, pre, 4 * h, seed=h)
+    e_wide = torch.cat([e, _edge(spec, dev, 3, 4 * h, seed=9)], dim=1)
+    ts = (eq[:, ::2], out[:, 1::2], fl[..., :2 * h], e_wide[:, :55, 2 * h:])
+    _round(pre, ts)
 
 
 @pytest.mark.parametrize("name", SPECS)
 def test_collate_narrow_vm(dev, name):
     """The narrow VM's 23 instructions at M = 2^8, in Fr and in Fq (the
-    field's words go in as K10-K12 take them)."""
-    from jolt_tpu_torch.vm import collation
+    field's words go in as K10 and K11 take them), at h = 300: a tile
+    half full."""
     spec = SPECS[name]
     pre = _lookups(spec, 1 << 8, narrow=True)
-    m = 1 + max(max(mk) for mk in pre.instruction_to_memory_indices)
-    e_t = _edge(spec, dev, m, 300, seed=5)
-    f_t = _edge(spec, dev, 23, 300, seed=6)
-    _equal(_launched(collation.COLLATE,
-                     lambda: collation.collate(pre, e_t, f_t)),
-           collation.collate_plain(pre, e_t, f_t))
+    _round(pre, _round_inputs(spec, dev, pre, 600, seed=5))
 
 
 def test_collate_refuses_int64(dev):
-    from jolt_tpu_torch.vm import collation
+    from jolt_tpu_torch.vm import instruction_lookups as il
     spec = fr_spec()
     pre = _lookups(spec, 1 << 16)
-    e_t, f_t = _rand(spec, dev, 55, 4), _rand(spec, dev, 29, 4)
+    eq, out, fl, e = _round_inputs(spec, dev, pre, 8, seed=1, edge=False)
     with pytest.raises(TypeError, match="int32"):
-        collation.collate(pre, e_t.long(), f_t)
+        il.primary_round(pre, eq, out, fl, e.long())
     with pytest.raises(ValueError, match="CUDA"):
-        collation.collate(pre, e_t, f_t.cpu())
+        il.primary_round(pre, eq, out, fl.cpu(), e)
+    with pytest.raises(ValueError, match="n even"):
+        il.primary_round(pre, eq[:, :7], out[:, :7], fl[..., :7], e[..., :7])
 
 
 def test_primary_round_one_collate_a_point(dev):
-    """_primary_round_evals on the card: one K13 launch per point (degree
-    + 1 of them), equal to the same round on the CPU."""
+    """The prover's round on a preprocessing of five instructions: one
+    launch a round (in place of a collation launch a point), equal to the
+    same round on the CPU."""
     from jolt_tpu_torch.instructions import RV32I_INSTRUCTIONS
-    from jolt_tpu_torch.vm import collation
     from jolt_tpu_torch.vm import instruction_lookups as il
     from jolt_tpu_torch.vm.rv32i_vm import RV32I_SUBTABLES
     spec = fr_spec()
@@ -695,7 +702,23 @@ def test_primary_round_one_collate_a_point(dev):
                                              1 << 8, dev, spec)
     ts = [_edge(spec, "cpu", *s, seed=i) for i, s in enumerate(
         [(64,), (64,), (5, 64), (pre.num_memories, 64)])]
-    want = il._primary_round_evals(pre, *ts)
-    got = _launched(collation.COLLATE, lambda: il._primary_round_evals(
-        pre, *(t.to(dev) for t in ts)), n=pre.sumcheck_degree + 1)
+    want = il.primary_round(pre, *ts)
+    got = _launched(il.PRIMARY_ROUND, lambda: il.primary_round(
+        pre, *(t.to(dev) for t in ts)))
     _equal(got, want)
+
+
+def test_primary_round_on_a_virtual_card_mesh(dev):
+    """parallel/sharding.py's round_evals on a virtual mesh of 2 shards on
+    the card (rv32i_vm(), 2^10 entries, cyclic shards): one launch a
+    shard, folded equal to the unsharded round."""
+    from jolt_tpu_torch.parallel import sharding as sh
+    from jolt_tpu_torch.vm import instruction_lookups as il
+    spec = fr_spec()
+    pre = _lookups(spec, 1 << 16)
+    ts = _round_inputs(spec, dev, pre, 1 << 10, seed=21)
+    mesh = sh.make_mesh(2, device=dev)
+    shards = [sh.maybe_shard_hypercube(mesh, t) for t in ts]
+    got = _launched(il.PRIMARY_ROUND, lambda: sh.round_evals(
+        spec, lambda *x: il.primary_round(pre, *x), shards), 2)
+    _equal(got, il.primary_round_plain(pre, *ts))

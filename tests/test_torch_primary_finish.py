@@ -1,18 +1,20 @@
 """The primary sumcheck's round on the port's CPU path against jolt_tpu.
 
-- K12's plain version, `primary_finish_plain` (sum_i eq[i] * (inner[i] -
-  out[i]) over a round's half), against jolt_tpu's `_point_finish_jit`
-  with its mask over the whole half, on strided halves as the round hands
-  them over;
-- `_primary_round_evals` (the round split, the extrapolation on K10, the
-  collations, K12 at each point) against jolt_tpu's
-  `_primary_round_evals_decomposed`, on a preprocessing of five
-  instructions of the narrow VM at M = 2^8;
-- `collate` (the collations and their sum, K13's function; its plain
-  version on the CPU) at a round's points against the sum of jolt_tpu's
-  `_g_term_jit` terms for the same five instructions: t = 0 and 1 the
-  lo and hi halves of [16, m, 2H] and [16, NI, 2H] (strided views), t >=
-  2 contiguous tensors, as K10 makes them;
+- the finisher's plain version, `primary_finish_plain` (sum_i eq[i] *
+  (inner[i] - out[i]) over a round's half), against jolt_tpu's
+  `_point_finish_jit` with its mask over the whole half, on strided
+  halves as the round hands them over;
+- the round kernel's plain version, `primary_round_plain` (the split, the
+  extrapolation, the collations through the group plan, the finisher at
+  each of the d + 1 points), and its wrapper `primary_round` on CPU
+  tensors, against jolt_tpu's `_primary_round_evals_decomposed`, on a
+  preprocessing of five instructions of the narrow VM at M = 2^8, on
+  random and on edge residues;
+- the collations and their sum (`collate_plain`, and through the group
+  plan `collate_grouped_plain`) at a round's points against the sum of
+  jolt_tpu's `_g_term_jit` terms for the same five instructions: t = 0
+  and 1 the lo and hi halves of [16, m, 2H] and [16, NI, 2H] (strided
+  views), t >= 2 contiguous tensors;
 - the collations' constants (DevF's coerced ints): a second pass of the
   29 collations of rv32i_vm() uploads none, and every result equals the
   pass that uploaded each constant afresh.
@@ -78,8 +80,6 @@ def test_primary_finish_plain_matches_point_finish(H):
     teq, tout = limbs_from_numpy(eq2)[:, :H], limbs_from_numpy(out2)[:, :H]
     got = il.primary_finish_plain(FR, teq, tout, limbs_from_numpy(inner))
     assert (limbs_to_numpy(got) == np.asarray(want)).all()
-    assert (limbs_to_numpy(il.primary_finish(FR, teq, tout, limbs_from_numpy(
-        inner))) == np.asarray(want)).all()
 
 
 def _classes(instructions):
@@ -87,31 +87,60 @@ def _classes(instructions):
     return [by[name] for name in ROUND_INSTRUCTIONS]
 
 
-def test_primary_round_evals_match_decomposed():
-    """One round at H = 4 (8 hypercube points) on random eq, out, flags
-    and memories: [16, degree + 1] equal, point for point."""
+def _round_pres():
     pre = il.InstructionLookupsPreprocessing(
         _classes(RV32I_INSTRUCTIONS), RV32I_SUBTABLES, C, M_NARROW, "cpu", FR)
     jpre = jil.InstructionLookupsPreprocessing(
         _classes(J_INSTRUCTIONS), J_SUBTABLES, C, M_NARROW, JFR)
     assert pre.instruction_to_memory_indices == \
         jpre.instruction_to_memory_indices
+    return pre, jpre
+
+
+def _check_round(pre, jpre, eq, out, fl, e, H):
+    want = jil._primary_round_evals_decomposed(
+        JFR, jpre.meta_key(), jpre.sumcheck_degree, *map(jnp.asarray,
+                                                         (eq, out, fl, e)), H)
+    ts = list(map(limbs_from_numpy, (eq, out, fl, e)))
+    got = il.primary_round_plain(pre, *ts)
+    assert got.shape == (16, pre.sumcheck_degree + 1)
+    assert (limbs_to_numpy(got) == np.asarray(want)).all()
+    assert torch.equal(il.primary_round(pre, *ts), got)
+
+
+def test_primary_round_evals_match_decomposed():
+    """One round at H = 4 (8 hypercube points) on random eq, out, flags
+    and memories: [16, degree + 1] equal, point for point."""
+    pre, jpre = _round_pres()
     H = 4
     rng = np.random.default_rng(12)
     eq, out = _rand(rng, (2 * H,)), _rand(rng, (2 * H,))
     fl = _rand(rng, (pre.num_instructions, 2 * H))
     e = _rand(rng, (pre.num_memories, 2 * H))
-    want = jil._primary_round_evals_decomposed(
-        JFR, jpre.meta_key(), jpre.sumcheck_degree, *map(jnp.asarray,
-                                                         (eq, out, fl, e)), H)
-    got = il._primary_round_evals(pre, *map(limbs_from_numpy,
-                                            (eq, out, fl, e)))
-    assert got.shape == (16, pre.sumcheck_degree + 1)
-    assert (limbs_to_numpy(got) == np.asarray(want)).all()
+    _check_round(pre, jpre, eq, out, fl, e, H)
+
+
+def test_primary_round_plain_matches_decomposed_on_edge_residues():
+    """The same round's shapes (no new XLA program) with every input
+    drawn from 0, 1, 2, p - 1, p - 2 and (p +- 1) / 2, so that hi - lo
+    and the extrapolated points wrap around p."""
+    pre, jpre = _round_pres()
+    H = 4
+    rng = np.random.default_rng(13)
+    pool = [0, 1, 2, FR.p - 1, FR.p - 2, (FR.p - 1) // 2, (FR.p + 1) // 2]
+
+    def edge(shape):
+        vals = [pool[i] for i in rng.integers(0, len(pool),
+                                              int(np.prod(shape)))]
+        return jfd.pack_ints(vals, shape)
+
+    _check_round(pre, jpre, edge((2 * H,)), edge((2 * H,)),
+                 edge((pre.num_instructions, 2 * H)),
+                 edge((pre.num_memories, 2 * H)), H)
 
 
 def test_collate_matches_g_term_jit():
-    """The three kinds of point a round hands collate: the lo and hi
+    """The three kinds of point a round collates: the lo and hi
     halves of e [16, m, 2H], flags [16, NI, 2H], and a contiguous t >= 2
     point; against jolt_tpu's terms summed mod p on the host.  H = 4, the
     round's shape above, whose five programs that test compiled."""
@@ -133,9 +162,11 @@ def test_collate_matches_g_term_jit():
             M_NARROW)(jnp.asarray(j_e), jnp.asarray(j_f))))
             for k, cls in enumerate(_classes(J_INSTRUCTIONS))]
         want = [sum(int(t[i]) for t in terms) % FR.p for i in range(H)]
-        got = collation.collate(pre, t_e, t_f)
+        got = collation.collate_plain(pre, t_e, t_f)
         assert got.shape == (16, H) and got.is_contiguous()
         assert [int(v) for v in jfd.unpack_ints(limbs_to_numpy(got))] == want
+        assert torch.equal(collation.collate_grouped_plain(pre, t_e, t_f),
+                           got)
 
 
 def _collations(vals_of):
