@@ -33,11 +33,12 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      [16, 55, 2^15] views of [16, 55, 2^16], and on a broadcast scalar,
      edge residues and a = b, K11 (the modular sum) over 2^23 terms (the
      sha2-chain prove's largest sum) and 2^20, over the leading axis of
-     [16, 110, 2^15] (a lane per row) and at lengths 1 and 3, and the
-     primary round's kernel (the extrapolation, rv32i_vm()'s 29
-     collations through the group plan, the finisher and the sum of every
-     point, one launch a round) at the first round (E [16, 55, 2^16],
-     flags [16, 29, 2^16], eq and out [16, 2^16]; h = 2^15), at h = 2^12,
+     [16, 110, 2^15] (a lane a row, 8 warps along the terms) and at
+     lengths 1 and 3, and the primary round's kernel (the extrapolation,
+     rv32i_vm()'s 29 collations through the group plan, the finisher and
+     the sum of every point, one launch a round) at the first round (E
+     [16, 55, 2^16], flags [16, 29, 2^16], eq and out [16, 2^16]; h =
+     2^15), at h = 2^12,
      at h = 2 and 1 on edge residues, on the mini VM (ADD, BNE) and on
      one shard of a 2-shard mesh's first round (cyclic, h = 2^14), with
      its INT32, bytes and chain bounds (the work's dependent chain, and
@@ -88,8 +89,11 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      prove's launches of K1, K10 and the round and of all kernels, and
      each kernel's calls in it with the sum of their bounds (the larger
      of bytes, operations and, for K8, K9 and the round, the work's
-     dependent chain, per call).  The first
-     prove runs with the profiling spans on (utils/profiling.py; each
+     dependent chain, per call) and that sum with one launch (phase 2's
+     launch floor) a call; every K11 call of that prove is kept with its
+     strides (strided_copy) and replayed against field_sum_plain (max
+     abs err 0), its calls and bound sums printed by (rows, n).  The
+     first prove runs with the profiling spans on (utils/profiling.py; each
      syncs the card on entry and exit): their table is printed, and each
      of the seven top-level prove spans (witness_generation,
      JoltPolynomials::commit, BytecodeProof::prove_memory_checking,
@@ -437,6 +441,13 @@ def work(name: str, args) -> tuple[int, int]:
     return tb(*pts) + 3 * 4 * 16 * n, per * n
 
 
+def sum_shape(a, axis: int) -> tuple[int, int]:
+    """(rows, n) of a K11 call on limb tensor `a` [16, ...]: rows sums of
+    n terms along logical axis `axis`."""
+    n = a.shape[axis + 1 if axis >= 0 else axis + a.dim()]
+    return a.numel() // 16 // n, n
+
+
 def field_adds(name: str, args) -> int:
     """Modular adds and subtracts of one K10, K11 or primary round call
     (ADDSUB_OPS 32-bit operations each): an add an element; n - 1 a sum
@@ -449,9 +460,8 @@ def field_adds(name: str, args) -> int:
         return math.prod(torch.broadcast_shapes(args[1].shape,
                                                 args[2].shape)[1:])
     if name == "field_sum":
-        _, a, axis = args
-        n = a.shape[axis + 1 if axis >= 0 else axis + a.dim()]
-        return a.numel() // 16 // n * (n - 1)
+        rows, n = sum_shape(*args[1:])
+        return rows * (n - 1)
     if name == "primary_round":
         from jolt_tpu_torch.vm import collation
         pre, h = args[0], args[1].shape[-1] // 2
@@ -459,6 +469,27 @@ def field_adds(name: str, args) -> int:
         return (points * h * (prog.adds + 1) + points * (h - 1)
                 + len(prog.plan.stage) * h * (points - 1))
     return 0
+
+
+def call_bounds(name: str, args, imad_rate: float) -> tuple:
+    """(bytes, 32-bit operations, bytes bound ms, operations bound ms)
+    of one call of kernel `name`: work's bytes and products, the Keccak's
+    and the modular adds' operations besides, at HBM_BYTES_PER_S and
+    `imad_rate` 32-bit operations a second."""
+    nbytes, products = work(name, args)
+    ops = products * MULS_PER_PRODUCT
+    if name in FS_KERNELS:              # and the Keccak's 32-bit operations
+        ops += fs_work(name, args)[2] * KECCAK_OPS
+    ops += field_adds(name, args) * ADDSUB_OPS
+    return (nbytes, ops, nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / imad_rate * 1e3)
+
+
+def launch_floor_ms() -> float:
+    """One launch: a one-element kernel, launched back to back."""
+    import torch
+    tiny = torch.zeros(1, dtype=torch.int64, device="cuda")
+    return event_ms(lambda: tiny.add_(1), 100)
 
 
 def ptxas_usage(reports: dict[str, str]) -> dict[str, dict]:
@@ -519,6 +550,19 @@ def event_ms(fn, reps: int, warm: bool = False, hold: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def strided_copy(t):
+    """A copy of tensor `t` with its strides and its offset mod 16 bytes:
+    the span of storage that t reads, copied into a new buffer (so that a
+    replayed K11 call takes the layout and the plan of the first)."""
+    import torch
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    pad = t.storage_offset() % 4
+    flat = torch.as_strided(t, (span,), (1,), t.storage_offset())
+    buf = torch.empty(span + pad, dtype=t.dtype, device=t.device)
+    buf[pad:].copy_(flat)
+    return torch.as_strided(buf, t.shape, t.stride(), pad)
 
 
 _HOST_POOL = None                  # phase 11's host checks (see main)
@@ -775,18 +819,6 @@ def main() -> None:
     more = {}                       # {kernel: [rows at further shapes]}
     launch = {}                     # the launch floor, measured with K8
 
-    def bounds(name, args):
-        """(bytes, 32-bit operations, bytes bound ms, operations bound ms)
-        of one call of kernel `name`: work's bytes and products, the
-        Keccak's and the modular adds' operations besides."""
-        nbytes, products = work(name, args)
-        ops = products * MULS_PER_PRODUCT
-        if name in FS_KERNELS:          # and the Keccak's 32-bit operations
-            ops += fs_work(name, args)[2] * KECCAK_OPS
-        ops += field_adds(name, args) * ADDSUB_OPS
-        return (nbytes, ops, nbytes / HBM_BYTES_PER_S * 1e3,
-                ops / imad_rate * 1e3)
-
     def latency_ms(name, args):
         """(the work's chain, the design's chain) of one call of a kernel
         that a dependent chain bounds (K8, K9, the round), each in ms at
@@ -798,11 +830,15 @@ def main() -> None:
         return tuple(lv * DEP_CYCLES / clock_hz * 1e3 + launch["ms"]
                      for lv in (chain, design))
 
-    def least_ms(name, args):
+    def least_ms(name, args, floor=0.0):
         """The least time of one call: the larger of its bytes, its
-        operations and, where one bounds it, its chain."""
-        return max(*bounds(name, args)[2:], *(
-            latency_ms(name, args)[:1] if name in CHAIN_KERNELS else ()))
+        operations and, where one bounds it (K8, K9, the round), its
+        chain, which holds one launch already; `floor` (one launch) is
+        added to the bytes and the operations."""
+        return max(*(b + floor
+                     for b in call_bounds(name, args, imad_rate)[2:]),
+                   *(latency_ms(name, args)[:1] if name in CHAIN_KERNELS
+                     else ()))
 
     def compare(phase, name, shape, args, record=True, time_plain=True):
         """The kernel against its plain version on `args`, then each
@@ -822,7 +858,7 @@ def main() -> None:
         kernel_ms = event_ms(lambda: wrapper(*args), 10)
         plain_ms = (event_ms(lambda: plain(*args), 1, warm=True)
                     if time_plain else None)
-        nbytes, muls, bytes_ms, ops_ms = bounds(name, args)
+        nbytes, muls, bytes_ms, ops_ms = call_bounds(name, args, imad_rate)
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.2f}"
@@ -976,8 +1012,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     # K8, K9: the device Fiat-Shamir kernels.  The launch floor: a
     # one-element kernel, launched back to back
-    tiny = torch.zeros(1, dtype=torch.int64, device=dev)
-    launch["ms"] = event_ms(lambda: tiny.add_(1), 100)
+    launch["ms"] = launch_floor_ms()
     print(f"phase 2: one launch (a one-element kernel, back to back) "
           f"{launch['ms']:.4f} ms", flush=True)
     # K8 over 1,024 chained events, launch by launch against its plain
@@ -1069,9 +1104,9 @@ def main() -> None:
                                  ("neg", ed16, ed16, fk.NEG)):
         compare("phase 2", "field_addsub", f"[16,55,2^12] {what} edge "
                 "residues", (FR, a16, b16, op16), record=False)
-    # K11: the sha2-chain prove's largest sum, one row of 2^23 terms (the
-    # cut across warps), one of 2^20, the leading axis of [16, 110, 2^15]
-    # (a lane per row), lengths 1 and 3
+    # K11: the sha2-chain prove's largest sum, one row of 2^23 terms (cut
+    # into a wave of segments), one of 2^20, the leading axis of [16, 110,
+    # 2^15] (a lane a row, 8 warps along the terms), lengths 1 and 3
     compare("phase 2", "field_sum", "[16,2^23] along -1",
             (FR, rand_fe(FR, 8 * n), -1))
     compare("phase 2", "field_sum", "[16,2^20] along -1",
@@ -1293,12 +1328,15 @@ def main() -> None:
             return tuple(map(tuple, args[3])), args[2] is None
         return args[4], args[5], args[1].shape[1]
 
-    def start_recording(by_batch, fs_calls=None, bound_sums=None):
+    def start_recording(by_batch, fs_calls=None, bound_sums=None,
+                        sum_calls=None):
         """Wrap each kernel's wrapper at its sites; returns the dict that
         the wrapped calls fill with the inputs of the largest calls.  With
         `fs_calls`, K8's and K9's calls are also counted by shape there,
         with a copy of each shape's first inputs; with `bound_sums`, each
-        kernel's calls and the sum of their bounds (ms) are kept there."""
+        kernel's calls, the sum of their bounds (ms) and that sum with one
+        launch a call are kept there; with `sum_calls`, a copy of every
+        K11 call's inputs, strides kept (strided_copy)."""
         largest = {}
 
         def keep_largest(name, fn):
@@ -1314,9 +1352,14 @@ def main() -> None:
                     count, first = fs_calls.get(shape, (0, None))
                     fs_calls[shape] = (count + 1, first or copy(args))
                 if bound_sums is not None and ts[0].is_cuda:
-                    rec = bound_sums.setdefault(name, [0, 0.0])
+                    rec = bound_sums.setdefault(name, [0, 0.0, 0.0])
                     rec[0] += 1
                     rec[1] += least_ms(name, args)
+                    rec[2] += least_ms(name, args, launch["ms"])
+                if (sum_calls is not None and name == "field_sum"
+                        and ts[0].is_cuda):
+                    sum_calls.append((args[0], strided_copy(args[1]),
+                                      args[2]))
                 return fn(*args)
             return wrapped
 
@@ -1378,7 +1421,38 @@ def main() -> None:
                   f"Fiat-Shamir: {calls} launches in {len(shapes)} shapes, "
                   f"{ms:.3f} ms summed on the card [{card}]", flush=True)
 
+    def replay_sums(phase, label, calls, counts):
+        """Every K11 call of one prove, replayed with its strides against
+        field_sum_plain (max abs err 0); printed by (rows, n) bucket, rows
+        sums of n terms: calls, the sum of their bounds, and that sum with
+        one launch a call."""
+        if len(calls) != counts["field_sum"]:
+            fail(f"{phase}: field_sum launched {counts['field_sum']} times, "
+                 f"{len(calls)} calls recorded")
+        buckets, err = {}, 0
+        for args in calls:
+            _, a, axis = args
+            got, want = fk.field_sum(*args), fk.field_sum_plain(*args)
+            torch.cuda.synchronize()
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            if err or got.shape != want.shape:
+                fail(f"{phase}: field_sum at {list(a.shape)} strides "
+                     f"{list(a.stride())} along {axis}: kernel and plain "
+                     f"version differ (max abs err {err})")
+            rec = buckets.setdefault(sum_shape(a, axis), [0, 0.0, 0.0])
+            rec[0] += 1
+            rec[1] += least_ms("field_sum", args)
+            rec[2] += least_ms("field_sum", args, launch["ms"])
+        print(f"{phase}: every field_sum (K11) call of the {label} prove "
+              f"({len(calls)}) replayed against field_sum_plain: max abs err "
+              f"{err}; by (rows, n): " + json.dumps([
+                  {"rows": r, "n": n, "calls": c, "bound_ms": round(b, 4),
+                   "bound_launch_ms": round(bl, 4)}
+                  for (r, n), (c, b, bl) in sorted(buckets.items())]),
+              flush=True)
+
     histories = {}              # each VM path's transcript, by label
+    bound_sums_by_path = {}     # phase 8's bound sums, by label
 
     def vm_path(phase, label, vm, program, want_steps, want_T,
                 by_batch=False, spans=False, host_fs=False, **trace_args):
@@ -1403,7 +1477,8 @@ def main() -> None:
               f"{T.bit_length() - 1}", flush=True)
         fs_calls = {} if host_fs else None
         bound_sums = {} if host_fs else None
-        largest = start_recording(by_batch, fs_calls, bound_sums)
+        sum_calls = [] if host_fs else None
+        largest = start_recording(by_batch, fs_calls, bound_sums, sum_calls)
         nat.reset_launch_counts()
         t0 = time.perf_counter()
         srs_len = vm.required_srs_len(io, steps, rows)
@@ -1416,6 +1491,8 @@ def main() -> None:
             fs_calls.clear()            # the prove's calls alone
         if bound_sums:
             bound_sums.clear()
+        if sum_calls:
+            sum_calls.clear()
         torch.cuda.reset_peak_memory_stats()
         profiling.reset()
         profiling.enable(spans)
@@ -1435,13 +1512,20 @@ def main() -> None:
               f"{setup_v:.3f} s; main-path launches (setup + the prove) "
               f"{json.dumps(counts)}", flush=True)
         if bound_sums is not None:
-            print(f"{phase}: each kernel's calls in the {label} prove and the "
+            print(f"{phase}: each kernel's calls in the {label} prove, the "
                   f"sum of their bounds (the larger of bytes, operations "
                   f"and, for K8, K9 and the round, the work's dependent "
-                  f"chain, per call) " + json.dumps({
+                  f"chain, per call) and that sum with one launch "
+                  f"({launch['ms']:.4f} ms) a call " + json.dumps({
                       name: {"calls": c, "bound_ms": round(b, 4),
-                             "bound_us_per_call": round(1e3 * b / c, 4)}
-                      for name, (c, b) in bound_sums.items()}), flush=True)
+                             "bound_us_per_call": round(1e3 * b / c, 4),
+                             "bound_launch_ms": round(bl, 4)}
+                      for name, (c, b, bl) in bound_sums.items()}),
+                  flush=True)
+            bound_sums_by_path[label] = dict(bound_sums)
+        if sum_calls is not None:
+            replay_sums(phase, label, sum_calls, prove_counts)
+            sum_calls.clear()
         check_and_replay(phase, label, counts, largest)
         if fs_calls is not None:
             fs_device_ms(phase, label, fs_calls, prove_counts)
@@ -2322,6 +2406,7 @@ def main() -> None:
           f"{sum(walls.values()):.1f}", flush=True)
 
     # -- summary ----------------------------------------------------------
+    sha2_bounds = bound_sums_by_path[f"sha2-chain({SHA2_ITERS})"]
     kernels = []
     for k in nat.KERNELS:
         r = results[k.name]["phase 2"]
@@ -2352,6 +2437,9 @@ def main() -> None:
             "launches_evm_fixtures": evm_counts[k.name],
             "launches_scaffold_prove": scaffold_counts.get(k.name, 0),
             "launches_mesh_path": mesh_counts[k.name]}
+        calls8, bound8, bound8_l = sha2_bounds.get(k.name, (0, 0.0, 0.0))
+        row.update(sha2_prove_calls=calls8, sha2_bound_sum_ms=bound8,
+                   sha2_bound_sum_launch_ms=bound8_l)
         for key in ("latency_bound_ms", "serial_latency_bound_ms",
                     "plan_latency_bound_ms", "launch_ms", "host_ms"):
             if key in r:

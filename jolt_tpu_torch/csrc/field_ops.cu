@@ -17,27 +17,38 @@
 // Bound on the H100: bytes.  K10 reads two elements and writes one (192 B
 // of int32 limbs; a [16, 55, 2^15] half is 0.35 GB, 0.10 ms at 3.35
 // TB/s), with one 8-word add and one conditional subtract; K11 reads each
-// term once (64 B) for one add.  At the prover's sizes every bound is
-// microseconds, so the launch and the wrapper's host time are what count:
-// the design is one launch per call with no scratch copies.
+// term once (64 B) for one add.  K10's design is one launch per call with
+// no scratch copies: at the prover's sizes most calls take microseconds.
 //
-// The sum's design.  Sums mod p are unique, so any order of add_mods gives
-// jolt_tpu's bits.  The work is cut into segments of one row's terms, one
-// warp each, in one of two layouts that the wrapper picks from the
-// strides, so that a warp's loads are coalesced:
-//   - lanes along the row (ROWS_FAST = 0; rs >= es, or few rows): a warp
-//     sums a chunk of one row, lane j the terms j, j + 32, ...; a shuffle
-//     tree sums the 32 lanes;
-//   - lanes across rows (ROWS_FAST = 1; many rows with es != 1, as in a
-//     sum over the leading axis of [16, m, n]): a warp takes 32 rows and a
-//     chunk of their terms, one row per lane.
-// The wrapper cuts each row into `chunks` so that about one wave of warps
-// runs (field/kernels.py `sum_plan`).  With one chunk a warp writes its
-// rows' sums.  With more, each segment's sum goes to `partials`, and the
-// last warp to finish a row (or a group of 32 rows) -- an atomic ticket on
-// a counter that the wrapper allocates once per stream and that warp
-// resets to 0 -- sums the row's partials and writes the output: one launch
-// for any length, 1 to 2^20 and beyond.
+// The sum's design.  Sums mod p are unique, so any order of adds gives
+// jolt_tpu's bits.  One launch at any shape, one resident wave of blocks
+// (SUM_MIN_BLOCKS an SM) walking the work by grid stride.  The work is
+// cut into tiles of rows and each tile's terms into `chunks` segments,
+// a block a segment, so that about one wave of segments exists
+// (field/kernels.py `sum_plan`).  A block's threads take a tile's rows in
+// one of two layouts, picked by the wrapper from the strides so that a
+// warp's loads are coalesced:
+//   - along the rows (ACROSS = 0; es == 1, or few rows): `tpr` threads a
+//     row (32 to 256, by the row's length), 256 / tpr rows a tile; where
+//     the rows are unit stride and 16-byte aligned, from 128 terms a row,
+//     a thread loads four consecutive terms of a limb at once (VEC:
+//     sixteen 16-byte loads in flight for four terms);
+//   - across the rows (ACROSS = 1; many rows with es != 1, as in a sum
+//     over the leading axis of [16, m, n]): 32 rows a tile, a lane a row,
+//     the block's 8 warps splitting the terms, so that no lane walks a
+//     whole row.
+// Each thread keeps two lazy sums in [0, 2p) over its terms (two terms'
+// loads, or a quad's, issued before their adds).  The block then sums
+// each row's threads: a shuffle tree in each warp, then the warps
+// through shared memory.  With one segment a tile, the
+// block writes its rows' sums.  With more, each segment's row sums go to
+// `partials`, and the last block to finish a tile -- an atomic ticket on
+// a counter that the wrapper allocates once per stream and that block
+// resets to 0 -- sums each row's partials with all its threads (L2
+// loads, two sums a thread, the same block tree) and writes the output.
+// No atomics on field values.  A whole block sums the partials: a lone
+// warp summing a row's 4,096 partials at 2^20 terms (128 dependent L2
+// loads and adds a lane) took 0.020 of a 0.049 ms sum on an H100.
 #include "field.cuh"
 
 namespace {
@@ -68,86 +79,164 @@ field_addsub_kernel(const int32_t* __restrict__ a,
   }
 }
 
-// out[:, r] = sum_k a[r, k] mod p for r < rows, k < n; limb l of term
-// (r, k) at a + r*rs + k*es + l*ls.  Segment seg of the layout covers
-// terms [c*chunk, (c+1)*chunk) of one row (ROWS_FAST = 0: row seg /
-// chunks) or of 32 rows (ROWS_FAST = 1: rows 32*(seg / chunks) + lane),
-// c = seg % chunks.  partials: one 8-word sum per (row, chunk);
-// counters: one per row (or group of 32 rows), 0 between launches.
-// a tensor's terms: term k of row r at a + r*rs + k*es, limb l at + l*ls.
-// One struct argument: with the pointer and strides as four arguments
-// ptxas takes 40 registers in place of 48 and the sum runs 8-20 % slower
-// on an H100 (0.058 against 0.048 ms over 2^20 terms).
-struct Terms {
+constexpr int SUM_THREADS = 256;
+constexpr int SUM_MIN_BLOCKS = 2;   // blocks an SM: the wrapper's wave
+
+// K11's operand and cut.  Term k of row r at a + r*rs + k*es, limb l at
+// + l*ls.  A tile is SUM_THREADS / tpr rows (ACROSS: 32 rows, a warp's
+// lanes, and tpr = 8 warps along the terms); a segment is `chunk` terms
+// of a tile, `chunks` segments a tile; partials hold 8 words a (row,
+// segment), counters one word a tile, 0 between launches.
+struct SumArgs {
   const int32_t* a;
   long long ls, es, rs;
+  long long rows, n, chunk, chunks, tiles;
+  int tpr, across, vec;
+  uint32_t* partials;
+  unsigned int* counters;
+  int32_t* out;                     // [16, rows]
 };
 
-__global__ void __launch_bounds__(OPS_THREADS)
-field_sum_kernel(Terms t, long long rows, long long n, long long chunk,
-                 long long chunks, int rows_fast,
-                 uint32_t* __restrict__ partials,
-                 unsigned int* __restrict__ counters,
-                 int32_t* __restrict__ out, long long o_ls, jt::Field F) {
-  const int lane = threadIdx.x & 31;
-  const long long warps = (long long)gridDim.x * (OPS_THREADS / 32);
-  const long long groups = rows_fast ? (rows + 31) / 32 : rows;
-  for (long long seg = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-       seg < groups * chunks; seg += warps) {
-    const long long g = seg / chunks, c = seg - g * chunks;
-    const long long k0 = c * chunk;
-    const long long k1 = k0 + chunk < n ? k0 + chunk : n;
-    // this lane's row, and whether it holds one
-    const long long r = rows_fast ? g * 32 + lane : g;
-    const bool live = r < rows;
-    jt::Fe acc = jt::fe_zero();
-    if (rows_fast) {
-      if (live)
-        for (long long k = k0; k < k1; k++)
-          acc = jt::fadd(acc, jt::load_limbs(t.a + r * t.rs + k * t.es, t.ls), F);
-    } else {
-      for (long long k = k0 + lane; k < k1; k += 32)
-        acc = jt::fadd(acc, jt::load_limbs(t.a + r * t.rs + k * t.es, t.ls), F);
-      acc = jt::warp_sum(acc, F);     // lane 0 holds the segment's sum
-    }
-    const bool writer = rows_fast ? live : lane == 0;
-    if (chunks == 1) {
-      if (writer) jt::store_limbs(out + r, o_ls, acc);
-      continue;
-    }
-    if (writer) {
-      jt::put_words(partials + (r * chunks + c) * 8, acc);
-      __threadfence();
-    }
-    __syncwarp();
-    unsigned int ticket = 0;
-    if (lane == 0) ticket = atomicAdd(counters + g, 1u);
-    ticket = __shfl_sync(0xffffffffu, ticket, 0);
-    if (ticket != chunks - 1) continue;
-    // the last segment of this row (group): sum its partials
-    __threadfence();
-    acc = jt::fe_zero();
-    if (rows_fast) {
-      if (live)
-        for (long long j = 0; j < chunks; j++)
-          acc = jt::fadd(acc, jt::get_words(partials + (r * chunks + j) * 8),
-                         F);
-    } else {
-      for (long long j = lane; j < chunks; j += 32)
-        acc = jt::fadd(acc, jt::get_words(partials + (r * chunks + j) * 8),
-                       F);
-      acc = jt::warp_sum(acc, F);
-    }
-    if (writer) jt::store_limbs(out + r, o_ls, acc);
-    if (lane == 0) counters[g] = 0;
+// terms k .. k+3 of a row from sixteen 16-byte loads, one a limb
+__device__ __forceinline__ void load_quad(const int32_t* __restrict__ src,
+                                          long long ls, jt::Fe* x) {
+  int4 q[16];
+#pragma unroll
+  for (int l = 0; l < 16; l++)
+    q[l] = __ldg(reinterpret_cast<const int4*>(src + l * ls));
+#pragma unroll
+  for (int w = 0; w < 8; w++) {
+    const int4 lo = q[2 * w], hi = q[2 * w + 1];
+    x[0].w[w] = ((uint32_t)lo.x & 0xFFFFu) | ((uint32_t)hi.x << 16);
+    x[1].w[w] = ((uint32_t)lo.y & 0xFFFFu) | ((uint32_t)hi.y << 16);
+    x[2].w[w] = ((uint32_t)lo.z & 0xFFFFu) | ((uint32_t)hi.z << 16);
+    x[3].w[w] = ((uint32_t)lo.w & 0xFFFFu) | ((uint32_t)hi.w << 16);
   }
 }
 
-long long warps_blocks(long long warps) {
-  const long long per = OPS_THREADS / 32;
-  const long long b = (warps + per - 1) / per;
-  const long long cap = 1LL << 20;
-  return b < 1 ? 1 : (b > cap ? cap : b);
+// One thread's share of terms [k0, k1) of a row, reduced: terms k0 + sub,
+// + tpr, ... (VEC: quads from k0 + 4 sub by 4 tpr, then the row's last
+// n % 4 terms one at a time), into two lazy sums.
+__device__ __forceinline__ jt::Fe thread_sum(const SumArgs& s,
+                                             const int32_t* __restrict__ row,
+                                             long long k0, long long k1,
+                                             int sub, const jt::Field& F) {
+  jt::Fe acc0 = jt::fe_zero(), acc1 = jt::fe_zero();
+  if (s.vec) {
+    const long long kq = k0 + ((k1 - k0) & ~3LL);
+    for (long long k = k0 + 4 * sub; k < kq; k += 4LL * s.tpr) {
+      jt::Fe x[4];
+      load_quad(row + k, s.ls, x);
+      acc0 = jt::ladd(acc0, x[0], F);
+      acc1 = jt::ladd(acc1, x[1], F);
+      acc0 = jt::ladd(acc0, x[2], F);
+      acc1 = jt::ladd(acc1, x[3], F);
+    }
+    k0 = kq;
+  }
+  long long k = k0 + sub;
+  for (; k + s.tpr < k1; k += 2LL * s.tpr) {
+    const jt::Fe x = jt::load_limbs(row + k * s.es, s.ls);
+    const jt::Fe y = jt::load_limbs(row + (k + s.tpr) * s.es, s.ls);
+    acc0 = jt::ladd(acc0, x, F);
+    acc1 = jt::ladd(acc1, y, F);
+  }
+  if (k < k1) acc0 = jt::ladd(acc0, jt::load_limbs(row + k * s.es, s.ls), F);
+  return jt::reduce(jt::ladd(acc0, acc1, F), F);
+}
+
+// Each row's sum over its threads, in its head thread (sub == 0): along
+// the rows a shuffle tree in each warp, then the row's warps through
+// shared memory; across them the first `warps` warps' lanes through
+// shared memory (the others held no term).  Every thread of the block
+// calls it.
+__device__ __forceinline__ jt::Fe rows_sum(jt::Fe v, const SumArgs& s,
+                                           long long warps,
+                                           uint32_t (*sh)[SUM_THREADS],
+                                           const jt::Field& F) {
+  const int t = threadIdx.x;
+  if (!s.across) {
+    v = jt::warp_sum(v, F);
+    if (s.tpr == 32) return v;
+    if ((t & 31) == 0) {
+#pragma unroll
+      for (int k = 0; k < 8; k++) sh[k][t >> 5] = v.w[k];
+    }
+    __syncthreads();
+    if (t % s.tpr == 0)
+      for (int w = 1; w < s.tpr / 32; w++) {
+        jt::Fe o;
+#pragma unroll
+        for (int k = 0; k < 8; k++) o.w[k] = sh[k][(t >> 5) + w];
+        v = jt::fadd(v, o, F);
+      }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; k++) sh[k][t] = v.w[k];
+    __syncthreads();
+    if (t < 32)
+      for (int w = 1; w < warps; w++) {
+        jt::Fe o;
+#pragma unroll
+        for (int k = 0; k < 8; k++) o.w[k] = sh[k][t + 32 * w];
+        v = jt::fadd(v, o, F);
+      }
+  }
+  __syncthreads();                  // sh is free again
+  return v;
+}
+
+// out[:, r] = sum_k a[r, k] mod p for r < rows, k < n.  One argument
+// struct (a kernel's parameters are one constant bank either way).
+__global__ void __launch_bounds__(SUM_THREADS, SUM_MIN_BLOCKS)
+field_sum_kernel(SumArgs s, jt::Field F) {
+  __shared__ uint32_t sh[8][SUM_THREADS];
+  __shared__ int last;
+  const int t = threadIdx.x;
+  const int per = SUM_THREADS / s.tpr;          // rows of a tile
+  const int ri = s.across ? (t & 31) : t / s.tpr;
+  const int sub = s.across ? (t >> 5) : t % s.tpr;
+  for (long long seg = blockIdx.x; seg < s.tiles * s.chunks;
+       seg += gridDim.x) {
+    const long long tile = seg / s.chunks, c = seg - tile * s.chunks;
+    const long long r = tile * per + ri;
+    const bool live = r < s.rows, writer = live && sub == 0;
+    const long long k0 = c * s.chunk;
+    const long long k1 = k0 + s.chunk < s.n ? k0 + s.chunk : s.n;
+    jt::Fe v = live ? thread_sum(s, s.a + r * s.rs, k0, k1, sub, F)
+                    : jt::fe_zero();
+    v = rows_sum(v, s, k1 - k0 < s.tpr ? k1 - k0 : s.tpr, sh, F);
+    if (s.chunks == 1) {
+      if (writer) jt::store_limbs(s.out + r, s.rows, v);
+      continue;
+    }
+    if (writer) {
+      jt::put_words(s.partials + (r * s.chunks + c) * 8, v);
+      __threadfence();
+    }
+    __syncthreads();
+    if (t == 0) last = atomicAdd(s.counters + tile, 1u) == s.chunks - 1;
+    __syncthreads();
+    if (!last) continue;
+    // the last segment of this tile: each row's partials, all threads
+    __threadfence();
+    jt::Fe u0 = jt::fe_zero(), u1 = jt::fe_zero();
+    if (live) {
+      const uint32_t* p = s.partials + r * s.chunks * 8;
+      long long j = sub;
+      for (; j + s.tpr < s.chunks; j += 2LL * s.tpr) {
+        const jt::Fe x = jt::get_words(p + j * 8);
+        const jt::Fe y = jt::get_words(p + (j + s.tpr) * 8);
+        u0 = jt::fadd(u0, x, F);
+        u1 = jt::fadd(u1, y, F);
+      }
+      if (j < s.chunks) u0 = jt::fadd(u0, jt::get_words(p + j * 8), F);
+    }
+    v = rows_sum(jt::fadd(u0, u1, F), s,
+                 s.chunks < s.tpr ? s.chunks : s.tpr, sh, F);
+    if (writer) jt::store_limbs(s.out + r, s.rows, v);
+    if (t == 0) s.counters[tile] = 0;
+  }
 }
 
 }  // namespace
@@ -172,23 +261,33 @@ extern "C" int jt_field_addsub(const int32_t* a, const int32_t* b,
 }
 
 // K11.  out[:, r] = sum_{k < n} a[r, k] mod p; limb l of term (r, k) at
-// a + r*rs + k*es + l*ls; out [16, rows].  chunk, chunks and rows_fast
-// come from sum_plan (field/kernels.py); partials holds rows x chunks x 8
-// words and counters one word per row (rows_fast: per 32 rows), all 0.
+// a + r*rs + k*es + l*ls; out [16, rows].  tpr, across, vec, chunk,
+// chunks and blocks come from sum_plan (field/kernels.py); with chunks >
+// 1, partials holds rows x chunks x 8 words and counters one word a tile,
+// all 0.
 extern "C" int jt_field_sum(const int32_t* a, int32_t* out, long long rows,
                             long long n, long long rs, long long ls,
-                            long long es, long long chunk, long long chunks,
-                            long long rows_fast, uint32_t* partials,
+                            long long es, long long tpr, long long across,
+                            long long vec, long long chunk, long long chunks,
+                            long long blocks, uint32_t* partials,
                             unsigned int* counters, const uint32_t* field,
                             void* stream) {
-  if (rows < 1 || n < 1 || chunk < 1 || chunks < 1 ||
-      (chunks - 1) * chunk >= n || chunks * chunk < n)
+  const bool tpr_ok = across ? tpr == SUM_THREADS / 32
+                             : (tpr == 32 || tpr == 64 || tpr == 128 ||
+                                tpr == SUM_THREADS);
+  if (rows < 1 || n < 1 || chunk < 1 || chunks < 1 || !tpr_ok ||
+      (chunks - 1) * chunk >= n || chunks * chunk < n ||
+      (chunks > 1 && (!partials || !counters)))
     return (int)cudaErrorInvalidValue;
-  const jt::Field F = jt::make_field(field);
-  const long long groups = rows_fast ? (rows + 31) / 32 : rows;
-  field_sum_kernel<<<(unsigned int)warps_blocks(groups * chunks),
-                     OPS_THREADS, 0, (cudaStream_t)stream>>>(
-      Terms{a, ls, es, rs}, rows, n, chunk, chunks, (int)rows_fast,
-      partials, counters, out, rows, F);
+  if (vec && (across || es != 1 || chunk % 4 || ls % 4 ||
+              (rows > 1 && rs % 4) || ((uintptr_t)a & 15)))
+    return (int)cudaErrorMisalignedAddress;
+  const long long per = SUM_THREADS / tpr;
+  const long long tiles = (rows + per - 1) / per;
+  if (blocks < 1 || blocks > tiles * chunks) return (int)cudaErrorInvalidValue;
+  const SumArgs s{a, ls, es, rs, rows, n, chunk, chunks, tiles, (int)tpr,
+                  (int)across, (int)vec, partials, counters, out};
+  field_sum_kernel<<<(unsigned int)blocks, SUM_THREADS, 0,
+                     (cudaStream_t)stream>>>(s, jt::make_field(field));
   return (int)cudaGetLastError();
 }

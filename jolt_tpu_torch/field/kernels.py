@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -63,7 +64,7 @@ FIELD_ADDSUB = nat.CudaKernel(
     "field_addsub_kernel", 256)
 FIELD_SUM = nat.CudaKernel(
     "field_sum", "field_ops", "jt_field_sum",
-    [nat.vptr] * 2 + [nat.i64] * 8 + [nat.vptr] * 2 + [nat.u32p, nat.vptr],
+    [nat.vptr] * 2 + [nat.i64] * 11 + [nat.vptr] * 2 + [nat.u32p, nat.vptr],
     "jolt_tpu/field/device.py:401-403 _fsum_jit (jax.jit)",
     "field_sum_kernel", 256)
 
@@ -418,10 +419,26 @@ def field_addsub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
 # K11: the modular sum along one logical axis
 # ---------------------------------------------------------------------------
 
-SUM_WAVE_WARPS = H100_SMS * 32  # warps that K11 aims to keep running:
-#   a row is cut into chunks until about this many segments exist
-SUM_MIN_CHUNK = 128            # terms of a chunk, lanes along a row
-SUM_MIN_CHUNK_ROWS = 4         # terms of a chunk, lanes across rows
+SUM_THREADS = 256              # K11's block (csrc/field_ops.cu)
+SUM_MIN_BLOCKS = 2             # K11 blocks per SM (its launch bounds there)
+SUM_WAVE = H100_SMS * SUM_MIN_BLOCKS   # blocks of one resident wave: a
+#   tile's terms are cut into segments until about this many exist
+SUM_MIN_TERMS = 8              # terms a thread at least, where a tile's
+#   terms are cut
+SUM_VEC_MIN = 128              # terms of a row from which K11 loads four
+#   at once: below it a warp's lanes hold a few terms each, and the
+#   quads' longer add chains cost more than they save
+
+
+class SumPlan(NamedTuple):
+    """K11's cut of `rows` sums of n terms (csrc/field_ops.cu)."""
+    across: bool   # lanes across 32 rows, the 8 warps along the terms
+    tpr: int       # threads of a row: 32-256 along the rows, 8 across
+    vec: bool      # a thread loads 4 terms of a limb at once
+    chunk: int     # terms of a segment (a multiple of 4 with vec)
+    chunks: int    # segments of a tile
+    tiles: int     # tiles of SUM_THREADS // tpr rows
+    blocks: int    # the grid: one wave at most, walked by grid stride
 
 
 def field_sum_plain(spec: FieldSpec, a: torch.Tensor, axis: int
@@ -429,40 +446,48 @@ def field_sum_plain(spec: FieldSpec, a: torch.Tensor, axis: int
     return arith.sum_limbs(spec, a, axis)
 
 
-def sum_plan(rows: int, n: int, rows_fast: bool) -> tuple[int, int]:
-    """K11's cut of `rows` sums of n terms: (chunk, chunks), the terms
-    of one segment and the segments of one row.  With rows_fast a warp
-    sums 32 rows (a lane each), else one.  A row is cut until about
-    SUM_WAVE_WARPS segments exist, into chunks of at least SUM_MIN_CHUNK
-    terms (SUM_MIN_CHUNK_ROWS with rows_fast); lanes along a row take
-    chunks of whole warps' worth of terms."""
-    groups = -(-rows // 32) if rows_fast else rows
-    least = SUM_MIN_CHUNK_ROWS if rows_fast else SUM_MIN_CHUNK
-    chunks = max(1, min(-(-SUM_WAVE_WARPS // groups), -(-n // least)))
+def sum_plan(rows: int, n: int, across: bool, vec: bool) -> SumPlan:
+    """K11's cut.  Along the rows a row gets about n / 4 threads, a power
+    of two from 32 (a warp) to SUM_THREADS; across them a tile is 32
+    rows, a lane each, and 8 warps.  While fewer than SUM_WAVE tiles
+    exist, a tile's terms are cut into segments of at least
+    SUM_MIN_TERMS terms a thread, until about SUM_WAVE segments exist.
+    Four terms a load (`vec`, where the layout allows it) from
+    SUM_VEC_MIN terms a row."""
+    vec = vec and n >= SUM_VEC_MIN
+    if across:
+        tpr = SUM_THREADS // 32
+    else:
+        tpr = min(SUM_THREADS, max(32, 1 << (-(-n // 4) - 1).bit_length()))
+    tiles = -(-rows // (SUM_THREADS // tpr))
+    chunks = max(1, min(-(-SUM_WAVE // tiles),
+                        -(-n // (SUM_MIN_TERMS * tpr))))
     chunk = -(-n // chunks)
-    if not rows_fast:
-        chunk = -(-chunk // 32) * 32
-    return chunk, -(-n // chunk)
+    if vec:
+        chunk = -(-chunk // 4) * 4
+    chunks = -(-n // chunk)
+    return SumPlan(across, tpr, vec, chunk, chunks, tiles,
+                   min(SUM_WAVE, tiles * chunks))
 
 
 _SUM_SCRATCH: dict[tuple[torch.device, int], list[torch.Tensor]] = {}
 
 
 def sum_scratch(like: torch.Tensor, rows: int, chunks: int):
-    """K11's partial sums and per-row tickets (the round kernel's partials
-    and ticket: one row, a chunk per block) on `like`'s device, as
-    kernel arguments (partials, counters); null pointers where one chunk
-    a row needs neither.  Both are kept per stream, as K2's ticket: a
-    stream runs its launches in order, so the next launch finds the
-    counters back at 0 (the last warp of a row resets its own) and may
-    reuse the partials.  The counters are SUM_WAVE_WARPS words: sum_plan
-    cuts a row only while fewer rows (or groups of 32) exist.  The
-    partials grow to the largest call's rows x chunks x 8 words."""
+    """K11's partial sums and per-tile tickets (the round kernel's
+    partials and ticket: one row, a chunk per (point, tile)) on `like`'s
+    device, as kernel arguments (partials, counters); null pointers where
+    one chunk a row needs neither.  Both are kept per stream, as K2's
+    ticket: a stream runs its launches in order, so the next launch finds
+    the counters back at 0 (the last block of a tile resets its own) and
+    may reuse the partials.  The counters are SUM_WAVE words: sum_plan
+    cuts a tile's terms only while fewer tiles exist.  The partials grow
+    to the largest call's rows x chunks x 8 words."""
     if chunks == 1:
         return None, None
     key = (like.device, nat.stream(like))
     if key not in _SUM_SCRATCH:
-        _SUM_SCRATCH[key] = [torch.zeros(SUM_WAVE_WARPS, dtype=torch.int32,
+        _SUM_SCRATCH[key] = [torch.zeros(SUM_WAVE, dtype=torch.int32,
                                          device=like.device), like.new_empty(0)]
     counters, partials = _SUM_SCRATCH[key]
     need = rows * chunks * 8
@@ -486,6 +511,14 @@ def sum_view(a: torch.Tensor, ax: int):
     return (v, rows, n, *st)
 
 
+def sum_vec(v: torch.Tensor, rows: int, rs: int, ls: int, es: int,
+            across: bool) -> bool:
+    """Whether K11 loads four terms of a limb at once: rows of unit
+    stride along the rows, every row and limb at a 16-byte boundary."""
+    return (not across and es == 1 and ls % 4 == 0
+            and (rows == 1 or rs % 4 == 0) and v.data_ptr() % 16 == 0)
+
+
 def field_sum(spec: FieldSpec, a: torch.Tensor, axis: int) -> torch.Tensor:
     """Modular sum of a limb tensor [16, ...] along logical axis `axis`:
     one K11 launch on CUDA, whatever the length."""
@@ -499,11 +532,12 @@ def field_sum(spec: FieldSpec, a: torch.Tensor, axis: int) -> torch.Tensor:
     if a.numel() == 0:
         return torch.zeros((L,) + rest, dtype=torch.int32, device=a.device)
     v, rows, n, rs, ls, es = sum_view(a, ax)
-    rows_fast = rows >= 32 and es != 1
-    chunk, chunks = sum_plan(rows, n, rows_fast)
+    across = rows >= 32 and es != 1
+    plan = sum_plan(rows, n, across, sum_vec(v, rows, rs, ls, es, across))
     out = torch.empty((L, rows), dtype=torch.int32, device=a.device)
-    partials, counters = sum_scratch(a, rows, chunks)
-    FIELD_SUM.launch(nat.ptr(v), nat.ptr(out), rows, n, rs, ls, es, chunk,
-                     chunks, int(rows_fast), partials, counters,
+    partials, counters = sum_scratch(a, rows, plan.chunks)
+    FIELD_SUM.launch(nat.ptr(v), nat.ptr(out), rows, n, rs, ls, es,
+                     plan.tpr, int(plan.across), int(plan.vec), plan.chunk,
+                     plan.chunks, plan.blocks, partials, counters,
                      field_words(spec), nat.stream(out), device=out.device)
     return out.reshape((L,) + rest)

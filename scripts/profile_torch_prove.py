@@ -35,8 +35,11 @@ One warm-up prove and one unprofiled prove, then:
      and cumulative seconds.
 
 With --unprofiled-only it stops after the unprofiled prove: the prove
-seconds alone, for comparing checkouts in turns in one call (copy this
-script into the other checkout's scripts/).
+seconds alone, for comparing checkouts in turns in one call.
+
+`--root DIR` imports jolt_tpu_torch from another checkout (default: this
+one), with this checkout's SRS fixtures and chip_smoke.py, so that two
+checkouts run by the same script in one call compare by one method.
 
 With --span-cost PAIRS it measures what the profiling spans
 (jolt_tpu_torch/utils/profiling.py) cost instead: the seconds of one
@@ -58,6 +61,16 @@ on the card, and the calls are replayed twice under torch.profiler; it
 prints K2's summed device time per prove and how it splits over the
 launch plans (`gp_evals_plan`) the calls took.
 
+With --replay-k11, the same for K11 (`field_sum`): every call of one
+prove is kept on the card with its strides (chip_smoke.py's
+`strided_copy`, so the replay takes the same layout and plan) and
+replayed twice under torch.profiler; it prints K11's summed
+device time per prove and, by (rows, n) bucket (rows sums of n terms),
+the calls, their device ms, the sum of their bounds (the larger of
+bytes and operations, chip_smoke.py's `call_bounds`) and that sum with
+one launch a call (`launch_floor_ms`, as chip_smoke.py's phase 2); then
+one JSON line of the buckets.
+
 Prints the card's name and power limit first.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -65,6 +78,7 @@ from __future__ import annotations
 import argparse
 import cProfile
 import io
+import os
 import pstats
 import subprocess
 import sys
@@ -94,46 +108,111 @@ def port_kernels(nat) -> dict[str, tuple[str, str]]:
             for fn, (mangled, names) in fns.items()}
 
 
-def replay_k2(prove, card: str, tag: str) -> None:
+def keep_calls(prove, fk, wrapper_name: str, copy) -> list:
+    """Every call of wrapper `fk.<wrapper_name>` in one prove, its inputs
+    copied by `copy`."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from jolt_tpu_torch.field import kernels as fk
-    calls, wrapper = [], fk.gp_pair_evals
+    calls, wrapper = [], getattr(fk, wrapper_name)
 
     def keep(*a):
-        calls.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x
-                           for x in a))
+        calls.append(copy(a))
         return wrapper(*a)
 
-    fk.gp_pair_evals = keep             # where the prover looks it up
+    setattr(fk, wrapper_name, keep)     # where the prover looks it up
     try:
         prove()
     finally:
-        fk.gp_pair_evals = wrapper
-    plans = [fk.gp_evals_plan(a[1].shape[0], a[1].shape[2] // 2)
-             for a in calls]
-    for rep in range(2):
+        setattr(fk, wrapper_name, wrapper)
+    torch.cuda.synchronize()
+    return calls
+
+
+def replay(calls: list, wrapper, kernel) -> list[list[float]]:
+    """`calls` of `wrapper` replayed twice under torch.profiler: each
+    replay's device ms of `kernel` a call, in call order."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    reps = []
+    for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for a in calls:
                 wrapper(*a)
             torch.cuda.synchronize()
         evs = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA
-                      and fk.GP_PAIR_EVALS.function in e.name),
+                      and kernel.function in e.name),
                      key=lambda e: e.time_range.start)
         if len(evs) != len(calls):
-            sys.exit(f"replay: {len(evs)} K2 kernels for {len(calls)} calls")
+            sys.exit(f"replay: {len(evs)} {kernel.name} kernels for "
+                     f"{len(calls)} calls")
+        reps.append([(e.time_range.end - e.time_range.start) / 1e3
+                     for e in evs])
+    return reps
+
+
+def replay_k2(prove, card: str, tag: str) -> None:
+    import torch
+    from jolt_tpu_torch.field import kernels as fk
+    calls = keep_calls(prove, fk, "gp_pair_evals",
+                       lambda a: tuple(x.clone() if isinstance(
+                           x, torch.Tensor) else x for x in a))
+    plans = [fk.gp_evals_plan(a[1].shape[0], a[1].shape[2] // 2)
+             for a in calls]
+    reps = replay(calls, fk.gp_pair_evals, fk.GP_PAIR_EVALS)
+    for rep, times in enumerate(reps):
         by_plan: dict[int, list] = {}
-        for e, (groups, _) in zip(evs, plans):
+        for ms, (groups, _) in zip(times, plans):
             rec = by_plan.setdefault(groups, [0.0, 0])
-            rec[0] += (e.time_range.end - e.time_range.start) / 1e3
+            rec[0] += ms
             rec[1] += 1
-        total = sum(ms for ms, _ in by_plan.values())
-        print(f"K2 replay {rep} of one prove {tag}: {total:.3f} ms device "
-              f"time in {len(evs)} launches [{card}]", flush=True)
+        print(f"K2 replay {rep} of one prove {tag}: {sum(times):.3f} ms "
+              f"device time in {len(times)} launches [{card}]", flush=True)
         for groups, (ms, n) in sorted(by_plan.items()):
             print(f"  groups={groups}: {ms:.3f} ms in {n} launches",
                   flush=True)
+
+
+def replay_k11(prove, card: str, tag: str) -> None:
+    import importlib.util
+    import json
+    from jolt_tpu_torch.field import kernels as fk
+    spec_ = importlib.util.spec_from_file_location("chip_smoke",
+                                                   ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(smoke)
+    calls = keep_calls(prove, fk, "field_sum",
+                       lambda a: (a[0], smoke.strided_copy(a[1]), a[2]))
+    launch_ms = smoke.launch_floor_ms()
+    imad_rate = smoke.SMS * smoke.IMAD_PER_CLK_SM * smoke.max_sm_clock_hz()
+    held = sum(a.untyped_storage().nbytes() for _, a, _ in calls) / 1e9
+    print(f"K11: {len(calls)} calls kept ({held:.2f} GB); one launch "
+          f"{launch_ms:.4f} ms [{card}]", flush=True)
+    bounds = [max(smoke.call_bounds("field_sum", args, imad_rate)[2:])
+              for args in calls]
+    keys = [smoke.sum_shape(a, axis) for _, a, axis in calls]
+    reps = replay(calls, fk.field_sum, fk.FIELD_SUM)
+    for rep, times in enumerate(reps):
+        buckets: dict[tuple[int, int], list] = {}
+        for key, ms, bound in zip(keys, times, bounds):
+            rec = buckets.setdefault(key, [0, 0.0, 0.0, 0.0])
+            rec[0] += 1
+            rec[1] += ms
+            rec[2] += bound
+            rec[3] += bound + launch_ms
+        print(f"K11 replay {rep} of one prove {tag}: {sum(times):.3f} ms "
+              f"device time in {len(times)} launches; bound "
+              f"{sum(bounds):.3f} ms, with one launch a call "
+              f"{sum(bounds) + len(bounds) * launch_ms:.3f} ms [{card}]",
+              flush=True)
+        for (rows, n), (c, ms, b, bl) in sorted(buckets.items()):
+            print(f"  rows={rows} n={n}: {c} calls, {ms:.4f} ms, bound "
+                  f"{b:.4f} ms, with one launch a call {bl:.4f} ms",
+                  flush=True)
+    print(json.dumps({"k11_buckets": [
+        {"rows": rows, "n": n, "calls": c, "device_ms": ms, "bound_ms": b,
+         "bound_launch_ms": bl}
+        for (rows, n), (c, ms, b, bl) in sorted(buckets.items())],
+        "launch_ms": launch_ms, "card": card}), flush=True)
 
 
 def count_ops(prove, nat, card: str, tag: str) -> None:
@@ -215,12 +294,18 @@ def main() -> None:
                     help="count dispatched ops and launches (above)")
     ap.add_argument("--replay-k2", action="store_true",
                     help="profile K2's calls of one prove alone (above)")
+    ap.add_argument("--replay-k11", action="store_true",
+                    help="profile K11's calls of one prove alone (above)")
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="checkout whose jolt_tpu_torch is run")
     args = ap.parse_args()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         sys.exit("profile_torch_prove: no CUDA card")
-    sys.path.insert(0, str(ROOT))
+    os.environ.setdefault("JOLT_TPU_SRS_CACHE_DIR",
+                          str(ROOT / "fixtures" / "srs"))
+    sys.path.insert(0, str(args.root.resolve()))
     from jolt_tpu_torch import _native as nat
     from jolt_tpu_torch import cli, sdk
     from jolt_tpu_torch.commitment.hyperkzg import HyperKZG
@@ -280,6 +365,9 @@ def main() -> None:
     if args.replay_k2:
         replay_k2(prove, card, tag)
         return
+    if args.replay_k11:
+        replay_k11(prove, card, tag)
+        return
     if args.count_ops:
         count_ops(prove, nat, card, tag)
         return
@@ -326,9 +414,9 @@ def main() -> None:
     print(out.getvalue())
     for (path, _, fn), (_, calls, _, cum, _) in stats.stats.items():
         if fn == "keccak256" and "jolt_tpu_torch" in path:
-            print(f"keccak256 ({Path(path).relative_to(ROOT)}): {calls} "
-                  f"calls, {cum:.3f} s cumulative of the {wall_s:.3f} s "
-                  f"prove [{card}]")
+            rel = Path(path).relative_to(args.root.resolve())
+            print(f"keccak256 ({rel}): {calls} calls, {cum:.3f} s "
+                  f"cumulative of the {wall_s:.3f} s prove [{card}]")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernels, one checkout at a time, by one method.
 
-    python3 scripts/time_kernels.py [--root DIR] [--only fs|round]
+    python3 scripts/time_kernels.py [--root DIR] [--only fs|round|sum]
 
 on a CUDA card.  Imports jolt_tpu_torch from DIR (default: this
 checkout), builds its kernel libraries, and times each kernel wrapper with
@@ -22,7 +22,11 @@ round of rv32i_vm() (29 instructions, 55 memories, degree 8) at h =
 a checkout without it `_primary_round_evals` (9 collation launches, 9
 finisher launches and 32 K10 launches a round); 5 rounds a timing, so
 that the card's hold outlasts the host's enqueue of the older round's 50
-launches.  The wrappers' signatures are the same in every checkout of
+launches.  `--only sum` builds the field programs' library alone, prints
+K11's registers and spills (ptxas) and times K11 (`field_sum`) at
+chip_smoke.py's phase-2 shapes: [16, 2^23] and [16, 2^20] along -1, the
+leading axis of [16, 110, 2^15], [16, 55, 1] and [16, 3] along -1.  The
+wrappers' signatures are the same in every checkout of
 the port, so two checkouts timed in turns on one card (A, B, B, A)
 compare by the same clock and the same method.
 
@@ -39,14 +43,20 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+SUM_SHAPES = (("[16,2^23] along -1", (1 << 23,), -1),   # K11, phase 2's
+              ("[16,2^20] along -1", (1 << 20,), -1),
+              ("[16,110,2^15] along 0", (110, 1 << 15), 0),
+              ("[16,55,1] along -1", (55, 1), -1),
+              ("[16,3] along -1", (3,), -1))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose jolt_tpu_torch is timed")
-    ap.add_argument("--only", choices=("all", "fs", "round"), default="all",
-                    help="fs: K8 and K9 alone; round: the primary round")
+    ap.add_argument("--only", choices=("all", "fs", "round", "sum"),
+                    default="all", help="fs: K8 and K9 alone; round: the "
+                    "primary round; sum: K11")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -66,7 +76,13 @@ def main() -> None:
 
     card = smoke.card_line()
     print(card, flush=True)
-    nat.build()
+    if args.only == "sum":
+        reports = nat.build(["field_ops"], ptxas_verbose=True)
+        for fn, use in smoke.ptxas_usage(reports).items():
+            if fk.FIELD_SUM.mangled in fn:
+                print(f"K11 {fn}: {json.dumps(use)}", flush=True)
+    else:
+        nat.build()
     dev = torch.device("cuda")
     FR, FQ = fr_spec(), fq_spec()
     gen = torch.Generator(device=dev)
@@ -93,6 +109,13 @@ def main() -> None:
 
     if args.only == "round":
         round_rows(ms, smoke, fe, FR, dev)
+        print(json.dumps({"root": str(args.root), "card": card, "ms": ms}))
+        return
+    if args.only == "sum":
+        for label, shape, axis in SUM_SHAPES:
+            a = fe(FR, *shape)
+            row(f"K11 {label}", lambda: fk.field_sum(FR, a, axis))
+            del a
         print(json.dumps({"root": str(args.root), "card": card, "ms": ms}))
         return
     if args.only == "all":

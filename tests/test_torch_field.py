@@ -290,76 +290,206 @@ def test_addsub_operand_strides_address_every_element(view):
     assert src.data_ptr() == t.data_ptr()              # no copy
 
 
-def _model_field_sum(v: torch.Tensor, rows, n, rs, ls, es, chunk, chunks,
-                     rows_fast, p) -> list[int]:
-    """K11's loops in Python: segment seg covers chunk c of one row (or of
-    32 rows with rows_fast); a chunk's sum goes to the row's output when
-    it is the only one, else to a partial that the row's last segment
-    sums.  Asserts that every term is read once."""
+def _thread_terms(plan, k0: int, k1: int, sub: int) -> list[int]:
+    """The terms of [k0, k1) that K11's thread `sub` of a row reads
+    (csrc/field_ops.cu thread_sum): with vec, quads from k0 + 4 sub by
+    4 tpr, then the last (k1 - k0) % 4 terms one at a time; else k0 +
+    sub by tpr."""
+    ks = []
+    if plan.vec:
+        kq = k0 + ((k1 - k0) & ~3)
+        for k in range(k0 + 4 * sub, kq, 4 * plan.tpr):
+            ks += [k, k + 1, k + 2, k + 3]
+        k0 = kq
+    return ks + list(range(k0 + sub, k1, plan.tpr))
+
+
+def _model_field_sum(v: torch.Tensor, rows, n, rs, ls, es, plan,
+                     p) -> list[int]:
+    """K11's loops in Python: segment seg covers chunk c of a tile of
+    SUM_THREADS // tpr rows (32 across the rows), each row's terms split
+    over its tpr threads (_thread_terms); the block sums each row's
+    threads; with one chunk a tile it writes the rows' sums, else a
+    partial a (row, chunk), and the last block of the tile (the chunks-th
+    ticket) sums each row's partials over its tpr threads (j = sub, sub +
+    tpr, ...).  Asserts that every term is read once, every partial
+    written and read once inside sum_scratch's rows x chunks, the tickets
+    inside its SUM_WAVE counters, and 16-byte loads at 16-byte
+    boundaries."""
     flat = torch.tensor([], dtype=torch.int32).set_(
         v.untyped_storage()).numpy()
     off = v.storage_offset()
-    groups = -(-rows // 32) if rows_fast else rows
+    per = tfk.SUM_THREADS // plan.tpr
+    assert (per == 32) == plan.across
+    assert 1 <= plan.blocks <= min(tfk.SUM_WAVE, plan.tiles * plan.chunks)
+    assert plan.tiles * per >= rows > (plan.tiles - 1) * per
+    if plan.chunks > 1:
+        assert plan.tiles <= tfk.SUM_WAVE
     seen, partial, out = set(), {}, [None] * rows
-    for seg in range(groups * chunks):
-        g, c = divmod(seg, chunks)
-        k0, k1 = c * chunk, min(c * chunk + chunk, n)
+    tickets = [0] * plan.tiles
+    for seg in range(plan.tiles * plan.chunks):
+        tile, c = divmod(seg, plan.chunks)
+        k0, k1 = c * plan.chunk, min(c * plan.chunk + plan.chunk, n)
         assert k0 < k1
-        rs_of = [g * 32 + j for j in range(32) if g * 32 + j < rows] \
-            if rows_fast else [g]
-        for r in rs_of:
+        live = [r for r in range(tile * per, tile * per + per) if r < rows]
+        for r in live:
             total = 0
-            for k in range(k0, k1):
-                assert (r, k) not in seen
-                seen.add((r, k))
-                total += _flat_value(flat, off + r * rs + k * es, ls)
-            if chunks == 1:
+            for sub in range(plan.tpr):
+                for k in _thread_terms(plan, k0, k1, sub):
+                    assert k0 <= k < k1 and (r, k) not in seen
+                    seen.add((r, k))
+                    at = off + r * rs + k * es
+                    if plan.vec and k % 4 == 0:
+                        assert all((at + j * ls) % 4 == 0
+                                   for j in range(16))
+                    total += _flat_value(flat, at, ls)
+            if plan.chunks == 1:
                 out[r] = total % p
             else:
+                assert (r, c) not in partial and r * plan.chunks + c < \
+                    rows * plan.chunks
                 partial[r, c] = total % p
-    assert len(seen) == rows * n
-    if chunks > 1:
-        out = [sum(partial[r, c] for c in range(chunks)) % p
-               for r in range(rows)]
+        if plan.chunks > 1:
+            tickets[tile] += 1
+            if tickets[tile] == plan.chunks:       # the tile's last block
+                for r in live:
+                    out[r] = sum(partial.pop((r, j)) for sub in
+                                 range(plan.tpr) for j in
+                                 range(sub, plan.chunks, plan.tpr)) % p
+    assert len(seen) == rows * n and not partial
+    assert all(t == plan.chunks for t in tickets) or plan.chunks == 1
     return out
 
 
-@pytest.mark.parametrize("shape,axis", [((2, 300), -1), ((40, 9), 0),
-                                        ((3, 4, 5), 1), ((70, 2), -1),
-                                        ((1,), 0), ((33, 1), -1)])
+def _plans(rows, n, across, vec):
+    """The wrapper's plan, and the same layout cut into one segment a tile
+    and into segments of one term a thread (4 with vec)."""
+    plan = tfk.sum_plan(rows, n, across, vec)
+    least = (4 if plan.vec else 1) * plan.tpr
+    yield plan
+    for chunk in (-(-n // 4) * 4 if plan.vec else n, least):
+        chunks = -(-n // chunk)
+        yield plan._replace(chunk=chunk, chunks=chunks, blocks=min(
+            tfk.SUM_WAVE, plan.tiles * chunks))
+
+
+@pytest.mark.parametrize("shape,axis", [
+    ((2, 300), -1), ((40, 9), 0), ((3, 4, 5), 1), ((70, 2), -1), ((1,), 0),
+    ((33, 1), -1),
+    ((3,), -1),              # one block, one warp a row
+    ((2048,), -1),           # one block, 256 threads a row
+    ((2 * tfk.SUM_WAVE * 8, 3), -1),   # exactly one wave of tiles
+    ((20, 40), 0),           # across the rows, the terms over 8 warps
+    ((300, 33), 0),          # across, a tile's terms cut into segments
+    ((8, 4, 11), 0),         # across (rows 44), a middle view made whole
+    ((5, 2051), -1)])        # 16-byte loads, a row's last 3 terms alone
 def test_field_sum_plan_covers_every_term(shape, axis):
     """K11's wrapper math: the summed axis moved last as a view, its rows'
-    stride, the layout (lanes along a row or across rows) and sum_plan's
-    chunks; the model of the kernel's loops reads every term once and
-    gives the plain version's sums."""
+    stride, the layout (along or across the rows), the 16-byte loads and
+    sum_plan's cut; the model of the kernel's loops reads every term once
+    and gives the plain version's sums."""
     tspec = SPECS["fr"][1]
     rng = np.random.default_rng(len(shape) + shape[0])
     a = _rand_field(rng, tspec.p, shape)
     t = limbs_from_numpy(a)
     v, rows, n, rs, ls, es = tfk.sum_view(
         t, axis + 1 if axis >= 0 else axis + t.dim())
-    rows_fast = rows >= 32 and es != 1
-    for plan in (tfk.sum_plan(rows, n, rows_fast), (1, n), (n, 1)):
-        chunk, chunks = plan
-        assert (chunks - 1) * chunk < n <= chunks * chunk
-        got = _model_field_sum(v, rows, n, rs, ls, es, chunk, chunks,
-                               rows_fast, tspec.p)
-        want = tfd.unpack_ints(tfk.field_sum_plain(tspec, t, axis).numpy())
-        assert got == [int(w) for w in np.ravel(want)]
+    across = rows >= 32 and es != 1
+    want = tfd.unpack_ints(tfk.field_sum_plain(tspec, t, axis).numpy())
+    vecs = {tfk.sum_vec(v, rows, rs, ls, es, across), False}
+    for vec in vecs:
+        for plan in _plans(rows, n, across, vec):
+            assert (plan.chunks - 1) * plan.chunk < n <= \
+                plan.chunks * plan.chunk
+            got = _model_field_sum(v, rows, n, rs, ls, es, plan, tspec.p)
+            assert got == [int(w) for w in np.ravel(want)]
 
 
-@pytest.mark.parametrize("rows,n,rows_fast", [
-    (1, 1, False), (1, 127, False), (1, 1 << 15, False), (1, 1 << 20, False),
-    (55, 1 << 15, False), (1 << 15, 110, True), (1 << 16, 55, True),
-    (31, 4, False), (4224, 3, False), (4300, 2, True), (1 << 20, 1, True)])
-def test_sum_plan_bounds(rows, n, rows_fast):
-    """sum_plan's cut covers each row with non-empty chunks, and a row is
-    cut only while its tickets fit the counters (SUM_WAVE_WARPS words)."""
-    chunk, chunks = tfk.sum_plan(rows, n, rows_fast)
+def test_field_sum_vec_needs_alignment():
+    """16-byte loads only where every row and limb starts at a 16-byte
+    boundary and the terms are unit stride: not on a view one element
+    in, nor along a row stride of 6, nor across the rows."""
+    t = torch.zeros((16, 6, 8), dtype=torch.int32)
+    u = torch.zeros((16, 4, 6), dtype=torch.int32)
+    for view, ax, want in ((t, 2, True), (t[..., 1:5], 2, False),
+                           (t[..., :4], 2, True), (t[:, :, :6], 2, True),
+                           (u, 2, False), (t[:, 0], 1, True),
+                           (t, 1, False)):
+        v, rows, n, rs, ls, es = tfk.sum_view(view, ax)
+        across = rows >= 32 and es != 1
+        assert tfk.sum_vec(v, rows, rs, ls, es, across) == want, (
+            view.shape, view.stride(), ax)
+
+
+@pytest.mark.parametrize("rows,n,across,vec", [
+    (1, 1, False, False), (1, 127, False, True), (1, 1 << 15, False, True),
+    (1, 1 << 20, False, True), (55, 1 << 15, False, True),
+    (1 << 15, 110, True, False), (1 << 16, 55, True, False),
+    (31, 4, False, False), (4224, 3, False, False), (4300, 2, True, False),
+    (1 << 20, 1, True, False),
+    (1, 3, False, False),                              # one block
+    (1, tfk.SUM_WAVE * tfk.SUM_MIN_TERMS * 256, False, True),  # one wave
+    (1, tfk.SUM_WAVE * tfk.SUM_MIN_TERMS * 256 + 1, False, False),
+    (tfk.SUM_WAVE * 32, 7, True, False),               # a wave of tiles
+    (33, 300, True, False), (32, 1 << 20, True, False),  # across, cut
+    (1, 1 << 23, False, True)])
+def test_sum_plan_bounds(rows, n, across, vec):
+    """sum_plan's cut covers each row with non-empty chunks (multiples of
+    4 with 16-byte loads, which start at SUM_VEC_MIN terms), gives a row
+    a power of two of threads (8 warps across the rows), cuts a tile's
+    terms only while its tickets fit the counters (SUM_WAVE words) and
+    each thread keeps at least half of SUM_MIN_TERMS terms, and launches
+    at most one wave."""
+    plan = tfk.sum_plan(rows, n, across, vec)
+    chunk, chunks = plan.chunk, plan.chunks
     assert chunk >= 1 and (chunks - 1) * chunk < n <= chunks * chunk
-    groups = -(-rows // 32) if rows_fast else rows
+    if across:
+        assert plan.tpr == tfk.SUM_THREADS // 32
+    else:
+        assert plan.tpr in (32, 64, 128, 256)
+    per = tfk.SUM_THREADS // plan.tpr
+    assert plan.tiles == -(-rows // per)
+    assert plan.blocks == min(tfk.SUM_WAVE, plan.tiles * chunks)
     if chunks > 1:
-        assert groups < tfk.SUM_WAVE_WARPS
-        assert groups * chunks <= 2 * tfk.SUM_WAVE_WARPS
-    if not rows_fast:
-        assert chunk % 32 == 0 or chunks == 1
+        assert plan.tiles < tfk.SUM_WAVE
+        assert plan.tiles * chunks < 2 * tfk.SUM_WAVE
+        assert 2 * chunk >= tfk.SUM_MIN_TERMS * plan.tpr
+    assert plan.vec == (vec and n >= tfk.SUM_VEC_MIN)
+    if plan.vec:
+        assert chunk % 4 == 0
+    if rows == 1 and n >= tfk.SUM_WAVE * tfk.SUM_MIN_TERMS * 256:
+        assert chunks == tfk.SUM_WAVE == plan.blocks     # one full wave
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("view", ["whole", "lo half", "hi half, odd",
+                                  "leading axis", "a plane"])
+def test_strided_copy_keeps_k11_plan(view):
+    """chip_smoke.py's strided_copy, which keeps every K11 call of a prove
+    for its replay: the copy holds the same values with the same strides
+    and offset mod 16 bytes, so K11's view, layout, 16-byte loads and
+    plan are those of the call it copies."""
+    t = torch.arange(16 * 6 * 10, dtype=torch.int32).reshape(16, 6, 10)
+    a, ax = {"whole": (t, 2), "lo half": (t[..., :5], 2),
+             "hi half, odd": (t[..., 3:], 2), "leading axis": (t, 1),
+             "a plane": (t[:, 1], 1)}[view]
+    c = _chip_smoke().strided_copy(a)
+    assert torch.equal(c, a) and c.stride() == a.stride()
+    assert c.storage_offset() % 4 == a.storage_offset() % 4
+    plans = []
+    for x in (a, c):
+        v, rows, n, rs, ls, es = tfk.sum_view(x, ax)
+        across = rows >= 32 and es != 1
+        vec = tfk.sum_vec(v, rows, rs, ls, es, across)
+        plans.append(((rows, n, rs, ls, es), tfk.sum_plan(rows, n, across,
+                                                          vec)))
+    assert plans[0] == plans[1]

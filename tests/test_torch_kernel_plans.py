@@ -129,8 +129,9 @@ def _constexprs(src: str) -> dict[str, int]:
 
 def test_launch_constants_match_the_sources():
     """Each kernel's CUDA function and threads per block, K2's plan
-    constants, K8's and K9's limits (segments, the events K8's shared
-    memory holds, K9's shared memory at each degree) and the round
+    constants, K11's block and blocks an SM (its wave), K8's and K9's
+    limits (segments, the events K8's shared memory holds, K9's shared
+    memory at each degree) and the round
     kernel's groups, slots, operand encoding and shared memory, as the
     Python side keeps them, agree with the sources."""
     from jolt_tpu_torch.subprotocols import fs_device  # noqa: F401 (K9)
@@ -148,6 +149,9 @@ def test_launch_constants_match_the_sources():
     c = _constexprs((csrc / "gp_pair.cu").read_text())
     assert (c["GP_WARPS"], c["GP_MIN_BLOCKS"], c["GP_MAX_B"]) == \
         (fk.GP_WARPS, fk.GP_MIN_BLOCKS, fk.GP_MAX_B)
+    c = _constexprs((csrc / "field_ops.cu").read_text())
+    assert (c["SUM_THREADS"], c["SUM_MIN_BLOCKS"]) == \
+        (fk.SUM_THREADS, fk.SUM_MIN_BLOCKS)
     src = (csrc / "keccak.cu").read_text()
     c = _constexprs(src)
     assert (c["MAX_SEGS"], c["K8_SMEM_EVENTS"]) == \

@@ -14,7 +14,9 @@ Fiat-Shamir round) at every degree it takes; K3 taking its challenge from
 the card; K10 (the modular add, subtract, negate) at 1 to 2^20 elements,
 on strided halves and broadcasts and edge residues, refusing int64; K11
 (the modular sum) at lengths 1 to 2^20 along each axis and over many
-rows, twice (its tickets reset); the primary round's kernel (the
+rows, at the sha2 prove's largest sum, a row cut into exactly one wave
+of segments, a wave of tiles and an unaligned view, twice (its tickets
+reset), and on two streams in turn; the primary round's kernel (the
 extrapolation, the collations, the finisher and the sum of every point)
 at h = 1 to 2^15 on rv32i_vm(), the narrow VM in Fr and Fq and the mini
 VM, on views of wider tensors, twice (its ticket resets), one launch a
@@ -587,14 +589,68 @@ def test_field_sum(dev, n, axis):
 @pytest.mark.parametrize("shape,axis", [((110, 1 << 15), 0),
                                         ((55, 1 << 16), 0),
                                         ((64, 3, 5), 1), ((40, 9), -1),
-                                        ((1 << 16, 2), -1)])
+                                        ((1 << 16, 2), -1),
+                                        ((300, 33), 0), ((16, 1 << 16), -1),
+                                        ((5, 2051), -1)])
 def test_field_sum_rows(dev, shape, axis):
-    """Many rows: the leading axis of [16, B, h] (lanes across rows), a
-    middle axis (the rest made contiguous), many short rows."""
+    """Many rows: the leading axis of [16, B, h] (lanes across rows, the
+    terms over 8 warps), a middle axis (the rest made contiguous), many
+    short rows, few rows cut into segments, rows whose last terms follow
+    their 16-byte loads one at a time."""
     spec = fr_spec()
     a = _edge(spec, dev, *shape, seed=len(shape))
     _equal(_launched(fk.FIELD_SUM, lambda: fd.fsum(spec, a, axis)),
            fk.field_sum_plain(spec, a, axis))
+
+
+@pytest.mark.parametrize("what", ["[16,2^23] along -1",
+                                  "[16,110,2^15] along 0",
+                                  "a row one wave of segments long",
+                                  "a wave of tiles", "a view one term in"])
+def test_field_sum_main_path_shapes(dev, what):
+    """The sha2-chain prove's largest sum, the GP's sum over the leading
+    axis, a row that sum_plan cuts into exactly one wave of segments
+    (SUM_WAVE), rows that make exactly one wave of tiles, and a view whose
+    terms are not 16-byte aligned (scalar loads): each one launch, equal
+    to the plain version, twice (the tickets reset)."""
+    spec = fr_spec()
+    wave = fk.SUM_WAVE * fk.SUM_MIN_TERMS * fk.SUM_THREADS
+    a, axis = {
+        "[16,2^23] along -1": lambda: (_rand(spec, dev, 1 << 23), -1),
+        "[16,110,2^15] along 0": lambda: (_edge(spec, dev, 110, 1 << 15), 0),
+        "a row one wave of segments long": lambda: (
+            _edge(spec, dev, wave), -1),
+        "a wave of tiles": lambda: (_edge(spec, dev, 7, 32 * fk.SUM_WAVE),
+                                    0),
+        "a view one term in": lambda: (_edge(spec, dev, 3, 4099)[..., 1:],
+                                       -1)}[what]()
+    want = fk.field_sum_plain(spec, a, axis)
+    for _ in range(2):
+        _equal(_launched(fk.FIELD_SUM, lambda: fd.fsum(spec, a, axis)), want)
+
+
+def test_field_sum_on_two_streams(dev):
+    """Sums cut into segments on two streams in turn, each stream with its
+    own partials and tickets: every sum equals the plain version's, and
+    each stream's counters are back at 0."""
+    spec = fr_spec()
+    args = [(_edge(spec, dev, 1 << 20, seed=50), -1),
+            (_edge(spec, dev, 300, 40, seed=51), 0)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(4):
+        for k in range(2):
+            with torch.cuda.stream(streams[k]):
+                got[k].append(fd.fsum(spec, *args[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        want = fk.field_sum_plain(spec, *args[k])
+        for g in got[k]:
+            _equal(g, want)
+        key = (torch.device(dev.type, torch.cuda.current_device()),
+               streams[k].cuda_stream)
+        assert int(fk._SUM_SCRATCH[key][0].abs().sum()) == 0
 
 
 # ---------------------------------------------------------------------------
