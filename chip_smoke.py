@@ -42,7 +42,18 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      at h = 2 and 1 on edge residues, on the mini VM (ADD, BNE) and on
      one shard of a 2-shard mesh's first round (cyclic, h = 2^14), with
      its INT32, bytes and chain bounds (the work's dependent chain, and
-     the group plan's), and each of their wrappers' host time per call;
+     the group plan's); then the toggle and reduction rounds: K14 (the
+     toggled grand product's round evaluations) at its first round on
+     the sha2 path (flags [16, 55, 2^16] Montgomery 0/1, fingerprints
+     [16, 110, 2^16]), its last (s = 2) and s = 2^12 on edge residues,
+     K15 (the binds) on the toggle's three tensors with the challenge on
+     the card and on the reduction's eight with it by value, K16 (the
+     reduction round's evaluations) at its first round (4 pairs of 2^16),
+     17 pairs (two launches) and n = 2 on edge residues, K17 (the RLC) at
+     the first append's 85 columns read in place, HyperKZG's 16
+     polynomials padded to 2^16, and 50 polynomials (two launches) on
+     edge residues; and each of the field programs' and the rounds'
+     wrappers' host time per call;
   3. the main path begins (launch counts set to 0): HyperKZG setup of the
      2^20-point SRS, generated on the card; its first 2^17 points must equal
      fixtures/srs/srs_131072_6a6f6c74.npz bit for bit;
@@ -73,7 +84,8 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      sha2-chain(13) on rv32i_vm() (29 instructions, 26 subtables, C = 4,
      M = 2^16) with the input 0x05 x 32, traced to 62,413 steps, padded to
      T = 2^16, HyperKZG from the SRS fixture, as phase 6: one timed prove
-     (K1-K5, K10, K11 and the round must have launched; the largest call
+     (K1-K5, K10, K11, the round and K14-K17 must have launched; the
+     largest call
      of each kernel,
      and of K2 and K3 at each batch size, replayed against the plain
      version),
@@ -86,7 +98,9 @@ Phases (any failure exits non-zero, no phase catches and carries on):
      proves' seconds are printed, with K8's and K9's launches in the
      first prove and their summed device ms (each shape's calls times its
      kernel's time on the card alone at that shape), and the first
-     prove's launches of K1, K10 and the round and of all kernels, and
+     prove's launches of K1, K10, K11, the round and K14-K17 and of all
+     kernels (beside the 11,690 of the prove before the toggle and
+     reduction rounds were kernels), and
      each kernel's calls in it with the sum of their bounds (the larger
      of bytes, operations and, for K8, K9 and the round, the work's
      dependent chain, per call) and that sum with one launch (phase 2's
@@ -198,8 +212,9 @@ K7 (jac_double) lies on no VM or Surge path (see csrc/point.cu): phase 2
 holds it against its plain version, and those paths' launch checks exempt
 it; phase 11's Hyrax commit launches it.  The primary round's kernel
 (primary_round) lies on the VM paths, not on Surge's (phase 4 exempts
-it); the kernels line's `launches` of K10, K11 and the round are phase 8's
-sha2-chain(13) path (setup and the prove).  Phases 3-10, 12 (the quark
+it); the kernels line's `launches` of K10, K11, the round and K14-K17 are
+phase 8's sha2-chain(13) path (setup and the prove); K14-K17 lie on the
+VM paths, not on Surge's (phase 4 exempts them).  Phases 3-10, 12 (the quark
 path) and 13-15 run with device Fiat-Shamir, the default on the card, so
 K8 and K9 launch on them.
 """
@@ -254,12 +269,20 @@ REGS_PER_SM, SMEM_PER_SM, MAX_WARPS_PER_SM = 65536, 228 * 1024, 64
 OFF_PATH = {"jac_double": "no VM or Surge prove path of either package "
             "launches jac_double_pallas (K7); phase 11's Hyrax commit does "
             "(the windowed MSM's Horner doublings)"}
+SUMCHECK_KERNELS = ("toggle_evals", "bind_halves", "reduction_evals",
+                    "rlc")         # K14-K17 (csrc/sumcheck_ops.cu)
 OFF_SURGE = {"primary_round": "the Jolt VM's primary sumcheck round (its "
              "collations and finisher); Surge's primary sumcheck runs "
-             "`combine_with_eq` through `Sumcheck::prove_arbitrary`"}
+             "`combine_with_eq` through `Sumcheck::prove_arbitrary`",
+             **{k: "the Jolt VM's toggled grand product and opening "
+                "reduction; Surge's prove has neither (its opening "
+                "accumulator stays unused, as the reference's)"
+                for k in SUMCHECK_KERNELS}}
 FIELD_KERNELS = ("field_addsub", "field_sum",
-                 "primary_round")   # their kernels line's launches are
-#   phase 8's path
+                 "primary_round") + SUMCHECK_KERNELS   # their kernels
+#   line's launches are phase 8's path
+LAUNCHES_BEFORE = 11690            # all launches of a sha2-chain(13) prove
+#   before the toggle and reduction rounds were kernels (PERF.md)
 CHAIN_KERNELS = FS_KERNELS + ("primary_round",)   # bounded by a chain
 ADDSUB_OPS = 25                    # 32-bit operations of one modular add
 #   or subtract (field.cuh add_mod, sub_mod): 8-word add (subtract), the
@@ -273,7 +296,7 @@ KZG_KERNELS = ("mont_mul", "proj_cadd")
 QUARK_B, QUARK_LOGN, QUARK_SRS = 16, 20, 1 << 16
 QUARK_KERNELS = ("mont_mul", "gp_pair_evals", "gp_pair_bind", "fs_round",
                  "proj_cadd",
-                 "jac_add")
+                 "jac_add", "bind_halves", "reduction_evals", "rlc")
 GP_COMMIT_LOGN = 20
 GP_COMMIT_KERNELS = ("mont_mul", "proj_cadd", "jac_add")
 # phase 16 (c): the mesh prove's kernels.  On a mesh the grand products
@@ -421,6 +444,21 @@ def work(name: str, args) -> tuple[int, int]:
         points = pre.sumcheck_degree + 1
         return (4 * 16 * (n * len(prog.plan.stage) + points),
                 points * n // 2 * (prog.products + 1))
+    if name == "toggle_evals":          # the kernel's formula: 7 products
+        _, flags, fps, eq, coeffs = args    # a memory, 3 a pair index
+        m, h = flags.shape[1], flags.shape[-1] // 2
+        return tb(flags, fps, eq, coeffs) + 4 * 16 * 3, h * (7 * m + 3)
+    if name == "bind_halves":
+        ts = args[1]
+        n = sum(t.numel() // 16 for t in ts) // 2
+        return tb(*ts) + 4 * 16 * n + 4 * 16, n
+    if name == "reduction_evals":
+        _, polys, eqs = args[:3]
+        A, h = len(polys), polys[0].shape[-1] // 2
+        return tb(*polys, *eqs) + 4 * 16 * 2, 2 * A * h + 2 * A
+    if name == "rlc":
+        _, polys, _, n = args
+        return tb(*polys) + 4 * 16 * n, sum(p.shape[-1] for p in polys)
     if name == "mont_mul":
         import torch
         _, a, b = args
@@ -468,6 +506,16 @@ def field_adds(name: str, args) -> int:
         prog, points = collation.program(pre), pre.sumcheck_degree + 1
         return (points * h * (prog.adds + 1) + points * (h - 1)
                 + len(prog.plan.stage) * h * (points - 1))
+    if name == "toggle_evals":      # csrc/sumcheck_ops.cu's formula: 22
+        m, h = args[1].shape[1], args[1].shape[-1] // 2   # a memory, 12
+        return h * (22 * m + 12)                          # a pair index
+    if name == "bind_halves":       # a subtract and an add an output
+        return sum(t.numel() // 16 for t in args[1])
+    if name == "reduction_evals":   # 6 a pair index of a pair
+        A, h = len(args[1]), args[1][0].shape[-1] // 2
+        return 6 * A * h + 2 * A + 2
+    if name == "rlc":               # an add an input element
+        return sum(p.shape[-1] for p in args[1])
     return 0
 
 
@@ -797,7 +845,7 @@ def main() -> None:
         return t.reshape((16,) + shape)
 
     def as_tuple(x):
-        return x if isinstance(x, tuple) else (x,)
+        return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
     # each kernel's wrapper and plain version, taken before phase 6 wraps
     # the wrappers where the prover looks them up
@@ -814,7 +862,11 @@ def main() -> None:
         "fs_round": (fsd.fs_round, fsd.fs_round_plain),
         "field_addsub": (fk.field_addsub, fk.field_addsub_plain),
         "field_sum": (fk.field_sum, fk.field_sum_plain),
-        "primary_round": (il.primary_round, il.primary_round_plain)}
+        "primary_round": (il.primary_round, il.primary_round_plain),
+        "toggle_evals": (fk.toggle_evals, fk.toggle_evals_plain),
+        "bind_halves": (fk.bind_halves, fk.bind_halves_plain),
+        "reduction_evals": (fk.reduction_evals, fk.reduction_evals_plain),
+        "rlc": (fk.rlc, fk.rlc_plain)}
     results = {}                    # {kernel: {phase: row}}
     more = {}                       # {kernel: [rows at further shapes]}
     launch = {}                     # the launch floor, measured with K8
@@ -1175,15 +1227,100 @@ def main() -> None:
                 for t in shard13), (pre13, *shard13), record=False,
             time_plain=False)
     del shard13, mesh13
+    # K14-K17 at the sha2 prove's shapes (rv32i_vm(), T = 2^16, 55
+    # memories): the toggle round's first round (flags Montgomery 0/1,
+    # [16, 55, 2^16]; fingerprints [16, 110, 2^16]) and its last (s = 2,
+    # edge residues), its binds (flags, fingerprints, eq in one launch, the
+    # challenge on the card as K9 leaves it); the reduction's first round
+    # (its 4 openings of 2^16 active, the constant by value) and its binds,
+    # 17 pairs (two launches) and n = 2 on edge residues; the first
+    # append's RLC (85 columns of E [16, 55, 2^16], flags [16, 29, 2^16]
+    # and the outputs, read in place) and HyperKZG's (16 polynomials of
+    # 2^16 .. 2, padded to 2^16), 50 polynomials (two launches) on edge
+    # residues
+    bits14 = torch.randint(0, 2, (55, 2 * h16), generator=gen, device=dev,
+                           dtype=torch.int32).bool()
+    flags14 = torch.where(bits14[None], one16, 0).to(torch.int32)
+    fps14, eq14, co14 = (rand_fe(FR, 110, 2 * h16), rand_fe(FR, 2 * h16),
+                         rand_fe(FR, 110))
+    del bits14
+    compare("phase 2", "toggle_evals", "the first round: flags [16,55,2^16] "
+            "Montgomery 0/1, fingerprints [16,110,2^16], eq [16,2^16], "
+            "coeffs [16,110]", (FR, flags14, fps14, eq14, co14))
+    compare("phase 2", "toggle_evals", "the last round: flags [16,55,2], "
+            "fingerprints [16,110,2], eq [16,2] edge residues",
+            (FR, edge_fe(FR, 55, 2), edge_fe(FR, 110, 2), edge_fe(FR, 2),
+             edge_fe(FR, 110)), record=False)
+    compare("phase 2", "toggle_evals", "flags [16,55,2^12], fingerprints "
+            "[16,110,2^12], eq [16,2^12] edge residues",
+            (FR, edge_fe(FR, 55, 1 << 12), edge_fe(FR, 110, 1 << 12),
+             edge_fe(FR, 1 << 12), edge_fe(FR, 110)), record=False)
+    rj14 = edge_fe(FR, 1)[:, 0]
+    compare("phase 2", "bind_halves", "the toggle's first round: flags "
+            "[16,55,2^16], fingerprints [16,110,2^16], eq [16,2^16] -> "
+            "halves, the challenge on the card",
+            (FR, (flags14, fps14, eq14), rj14))
+    compare("phase 2", "bind_halves", "the toggle's last round: [16,55,2], "
+            "[16,110,2], [16,2] edge residues -> halves",
+            (FR, (edge_fe(FR, 55, 2), edge_fe(FR, 110, 2), edge_fe(FR, 2)),
+             rc), record=False)
+    del flags14, fps14, eq14, co14
+    n16 = 2 * h16
+    p16 = [rand_fe(FR, n16) for _ in range(4)]
+    q16 = [rand_fe(FR, n16) for _ in range(4)]
+    c16 = fk.host_limbs(FR, [FR.p - 1 - a for a in range(4)])
+    k16 = fk.host_limbs(FR, [0x1234567 ** 9])[:, 0]
+    compare("phase 2", "reduction_evals", "the first round: 4 pairs "
+            "[16,2^16] x 2", (FR, p16, q16, c16, k16))
+    compare("phase 2", "bind_halves", "the reduction's first round: 8 x "
+            "[16,2^16] -> halves, the challenge by value",
+            (FR, p16 + q16, rc), record=False)
+    del p16, q16
+    for A16, nn in ((17, 1 << 10), (3, 2)):
+        compare("phase 2", "reduction_evals", f"{A16} pairs [16,{nn}] x 2 "
+                "edge residues", (FR, [edge_fe(FR, nn) for _ in range(A16)],
+                                  [edge_fe(FR, nn) for _ in range(A16)],
+                                  fk.host_limbs(FR, range(1, A16 + 1)),
+                                  fk.host_limbs(FR, [FR.p - 1])[:, 0]),
+                record=False)
+    E17, F17, o17 = rand_fe(FR, 55, n16), rand_fe(FR, 29, n16), \
+        rand_fe(FR, n16)
+    cols17 = [E17[:, i] for i in range(55)] + [F17[:, i] for i in
+                                                range(29)] + [o17]
+    compare("phase 2", "rlc", "the first append: 85 polynomials of 2^16, "
+            "columns of [16,55,2^16] and [16,29,2^16] read in place",
+            (FR, cols17, fk.host_limbs(FR, range(7, 7 + 85)), n16))
+    del E17, F17, o17, cols17
+    kzg17 = [rand_fe(FR, n16 >> j) for j in range(16)]
+    compare("phase 2", "rlc", "HyperKZG's: 16 polynomials of 2^16 .. 2, "
+            "padded to 2^16", (FR, kzg17, fk.host_limbs(FR, range(3, 19)),
+                               n16), record=False)
+    compare("phase 2", "rlc", "50 polynomials of 2^10, 2^9 edge residues, "
+            "padded to 2^11", (FR, [edge_fe(FR, 1024 >> (i % 2)) for i in
+                                    range(50)],
+                               fk.host_limbs(FR, range(5, 55)), 2048),
+            record=False)
+    del kzg17
     # each wrapper's host time per call (enqueue only, at a size whose
-    # kernel is shorter than its wrapper), as the primary round calls them
+    # kernel is shorter than its wrapper), as the primary round and the
+    # toggle and reduction rounds call them
     sm16 = rand_fe(FR, 55, 128)
+    c2 = rand_fe(FR, 2)
     for name, args in (
             ("field_addsub", (FR, sm16[..., :64], sm16[..., 64:], fk.ADD)),
             ("field_addsub", (FR, sm16[:, 0, :64], one16[:, 0], fk.SUB)),
             ("field_sum", (FR, sm16[:, 0], -1)),
             ("primary_round", (pre13, eq16[:, :4], out16[:, :4],
-                               f16[..., :4], e16[..., :4]))):
+                               f16[..., :4], e16[..., :4])),
+            ("toggle_evals", (FR, sm16[:, :1, :4], sm16[:, 1:3, :4],
+                              sm16[:, 3, :4], c2)),
+            ("bind_halves", (FR, (sm16[:, :1, :4], sm16[:, 1:3, :4],
+                                  sm16[:, 3, :4]), rj14)),
+            ("reduction_evals", (FR, [sm16[:, a, :4] for a in range(4)],
+                                 [sm16[:, 4 + a, :4] for a in range(4)],
+                                 c16, k16)),
+            ("rlc", (FR, [sm16[:, a, :4] for a in range(8)],
+                     fk.host_limbs(FR, range(8)), 4))):
         fn = KERNEL[name][0]
         fn(*args)
         torch.cuda.synchronize()
@@ -1301,6 +1438,7 @@ def main() -> None:
     sites = {name: (fk if name in ("mont_mul", "mont_mul_bl",
                                    "gp_pair_evals", "gp_pair_bind",
                                    "field_addsub", "field_sum")
+                    + SUMCHECK_KERNELS
                     else kd if name == "transcript_events"
                     else fsd if name == "fs_round"
                     else il if name == "primary_round"
@@ -1661,9 +1799,13 @@ def main() -> None:
         spans=True, host_fs=True, inputs=cli.SHA2_INPUT)
     print(f"phase 8: the sha2-chain({SHA2_ITERS}) prove's launches: K1 "
           f"(mont_mul) {sha2_prove_counts['mont_mul']}, K10 (field_addsub) "
-          f"{sha2_prove_counts['field_addsub']}, the primary round "
-          f"{sha2_prove_counts['primary_round']}; all kernels "
-          f"{sum(sha2_prove_counts.values())} [{card}]", flush=True)
+          f"{sha2_prove_counts['field_addsub']}, K11 (field_sum) "
+          f"{sha2_prove_counts['field_sum']}, the primary round "
+          f"{sha2_prove_counts['primary_round']}, " + ", ".join(
+              f"{k} {sha2_prove_counts[k]}" for k in SUMCHECK_KERNELS)
+          + f"; all kernels {sum(sha2_prove_counts.values())} (before the "
+          f"toggle and reduction rounds were kernels: {LAUNCHES_BEFORE}) "
+          f"[{card}]", flush=True)
     out8 = bytes(io8.outputs)[:32]
     if out8 != sha2_chain_expected(cli.SHA2_INPUT, SHA2_ITERS):
         fail(f"sha2-chain({SHA2_ITERS}): the guest's output {out8.hex()} is "

@@ -30,7 +30,8 @@ from .utils.caches import build_dir
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(build_dir())
-SOURCES = ("mont", "gp_pair", "point", "keccak", "field_ops", "collate")
+SOURCES = ("mont", "gp_pair", "point", "keccak", "field_ops", "collate",
+           "sumcheck_ops")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,5 +1,6 @@
 """Field kernels: Montgomery products (K1, K4), the GKR pair round (K2,
-K3), and the modular add, subtract and sum (K10, K11).
+K3), the modular add, subtract and sum (K10, K11), and the sumcheck
+rounds of the toggled grand product and the opening reduction (K14-K17).
 
 Each wrapper takes limb tensors in jolt_tpu's layouts.  On CPU tensors it
 runs the plain PyTorch version beside it (the tests' path); on CUDA
@@ -16,6 +17,17 @@ card to the plain version.
 | field_addsub   | field/device.py _fadd_jit, _fsub_jit (K10, jit) | csrc/field_ops.cu  |
 | field_sum      | field/device.py _fsum_jit (K11, jit)            | csrc/field_ops.cu  |
 
+(paths under jolt_tpu/; the toggle round, the reduction round and the RLC
+in csrc/sumcheck_ops.cu, each replacing a jax.jit program:)
+
+| wrapper         | replaces                                                |
+| toggle_evals    | subprotocols/grand_product.py _toggle_cubic_evals (K14) |
+| bind_halves     | grand_product.py _toggle_bind; poly/opening_proof.py    |
+|                 | _reduction_round_fs's bind_top calls (K15)              |
+| reduction_evals | opening_proof.py _reduction_round_fs's evaluations,     |
+|                 | _quadratic_evals (K16)                                  |
+| rlc             | opening_proof.py _rlc and rlc_polys' padding (K17)      |
+
 (paths under jolt_tpu/; the primary sumcheck's round, with its
 collations and finisher, is vm/instruction_lookups.py's `primary_round`,
 csrc/collate.cu.)
@@ -27,6 +39,7 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import _native as nat
@@ -67,6 +80,32 @@ FIELD_SUM = nat.CudaKernel(
     [nat.vptr] * 2 + [nat.i64] * 11 + [nat.vptr] * 2 + [nat.u32p, nat.vptr],
     "jolt_tpu/field/device.py:401-403 _fsum_jit (jax.jit)",
     "field_sum_kernel", 256)
+
+_I64P = ctypes.POINTER(ctypes.c_int64)
+TOGGLE_EVALS = nat.CudaKernel(
+    "toggle_evals", "sumcheck_ops", "jt_toggle_evals",
+    [nat.vptr] * 4 + [_I64P] + [nat.i64] * 4 + [nat.vptr] * 3
+    + [nat.u32p, nat.vptr],
+    "jolt_tpu/subprotocols/grand_product.py:976 _toggle_cubic_evals (jax.jit)",
+    "toggle_evals_kernel", 256)
+BIND_HALVES = nat.CudaKernel(
+    "bind_halves", "sumcheck_ops", "jt_bind_halves",
+    [_I64P] * 7 + [nat.i64, nat.u32p, nat.vptr, nat.u32p, nat.vptr],
+    "jolt_tpu/subprotocols/grand_product.py:1017 _toggle_bind (jax.jit); "
+    "jolt_tpu/poly/opening_proof.py:71-72 (the binds of "
+    "_reduction_round_fs)", "bind_halves_kernel", 256)
+REDUCTION_EVALS = nat.CudaKernel(
+    "reduction_evals", "sumcheck_ops", "jt_reduction_evals",
+    [_I64P] * 4 + [nat.u32p, nat.i64, nat.i64, nat.u32p, nat.i64]
+    + [nat.vptr] * 3 + [nat.u32p, nat.vptr],
+    "jolt_tpu/poly/opening_proof.py:56 _reduction_round_fs (jax.jit) and "
+    ":144 _quadratic_evals", "reduction_evals_kernel", 256)
+RLC = nat.CudaKernel(
+    "rlc", "sumcheck_ops", "jt_rlc",
+    [_I64P] * 3 + [nat.u32p, nat.i64, nat.i64] + [nat.vptr] * 2
+    + [nat.u32p, nat.vptr],
+    "jolt_tpu/poly/opening_proof.py:30 _rlc (jax.jit) and :41 rlc_polys",
+    "rlc_kernel", 256)
 
 GP_WARPS = 8          # warps per K2 block (GP_THREADS / 32 in gp_pair.cu)
 GP_MIN_BLOCKS = 2     # K2 blocks per SM (its launch bound in gp_pair.cu)
@@ -326,6 +365,19 @@ def _gp_pair_evals_launch(spec: FieldSpec, l, r, eq, coeffs) -> torch.Tensor:
 # K3: bind the pair layers and eq to the round challenge
 # ---------------------------------------------------------------------------
 
+def _challenge_arg(name: str, r: torch.Tensor, like: torch.Tensor):
+    """A challenge [16] for K3 or K15: (8 words by value, null) from a CPU
+    tensor, or (zeros, its limbs' address) from one on the card (drawn
+    there by K9, read by the kernel with no host sync)."""
+    if r.device.type == "cpu":
+        limbs = [int(v) for v in r.reshape(L).tolist()]
+        return nat.words(limbs[2 * k] | (limbs[2 * k + 1] << 16)
+                         for k in range(8)), ctypes.c_void_p(None), r
+    nat.require_cuda(name, like, r)
+    r = r.reshape(L).contiguous()
+    return nat.words([0] * 8), nat.ptr(r), r
+
+
 def gp_pair_bind_plain(spec: FieldSpec, l, r, eq, r_chal):
     """jolt_tpu/subprotocols/grand_product.py:241-249."""
     h = l.shape[-1] // 2
@@ -354,15 +406,7 @@ def gp_pair_bind(spec: FieldSpec, l: torch.Tensor, r: torch.Tensor,
     nat.require_cuda("gp_pair_bind", l, r, eq)
     B, _, s = l.shape
     h = s // 2
-    rc_dev = ctypes.c_void_p(None)
-    if r_chal.device.type == "cpu":
-        limbs = [int(v) for v in r_chal.reshape(L).tolist()]
-        rc = nat.words(limbs[2 * k] | (limbs[2 * k + 1] << 16)
-                       for k in range(8))
-    else:
-        nat.require_cuda("gp_pair_bind", l, r_chal)
-        r_chal = r_chal.reshape(L).contiguous()
-        rc, rc_dev = nat.words([0] * 8), nat.ptr(r_chal)
+    rc, rc_dev, r_chal = _challenge_arg("gp_pair_bind", r_chal, l)
     nl = torch.empty((B, L, h), dtype=torch.int32, device=l.device)
     nr = torch.empty((B, L, h), dtype=torch.int32, device=l.device)
     neq = torch.empty((L, h), dtype=torch.int32, device=l.device)
@@ -541,3 +585,331 @@ def field_sum(spec: FieldSpec, a: torch.Tensor, axis: int) -> torch.Tensor:
                      plan.chunks, plan.blocks, partials, counters,
                      field_words(spec), nat.stream(out), device=out.device)
     return out.reshape((L,) + rest)
+
+
+# ---------------------------------------------------------------------------
+# K14-K17: the toggled grand product's round, the opening reduction's round
+# and its RLC (csrc/sumcheck_ops.cu)
+# ---------------------------------------------------------------------------
+
+TOGGLE_WARPS = 8               # warps of a K14 block
+TOGGLE_MIN_BLOCKS = 2          # K14 blocks an SM (its launch bounds)
+TOGGLE_MAX_M = 128             # memories a K14 launch; more are split
+TOGGLE_WAVE = H100_SMS * TOGGLE_MIN_BLOCKS   # K14's grid at most
+OPS_THREADS = 256              # K15, K16, K17 blocks
+REDUCE_MIN_BLOCKS = 2          # K16 blocks an SM (its launch bounds)
+REDUCE_WAVE = H100_SMS * REDUCE_MIN_BLOCKS   # K16's grid at most
+BIND_MAX = 32                  # tensors a K15 launch
+REDUCE_MAX_PAIRS = 16          # pairs a K16 launch
+RLC_MAX = 48                   # polynomials a K17 launch
+
+
+def host_limbs(spec: FieldSpec, values) -> torch.Tensor:
+    """Host ints -> Montgomery limbs [16, k] int32 on the CPU, converted
+    on the host (no tensor op): the coefficients and constants that K16
+    and K17 take by value."""
+    buf = b"".join(spec.to_mont(int(v) % spec.p).to_bytes(32, "little")
+                   for v in values)
+    limbs = np.frombuffer(buf, dtype="<u2").reshape(-1, L).T
+    return torch.from_numpy(limbs.astype(np.int32))
+
+
+def _words_by_value(name: str, limbs: torch.Tensor) -> ctypes.Array:
+    """Montgomery limbs [16, k] on the CPU -> 8 words per element, in
+    order, for a kernel argument."""
+    if limbs.device.type != "cpu":
+        raise ValueError(f"{name}: coefficients go by value: pass them as "
+                         "CPU limbs (host_limbs)")
+    v = limbs.reshape(L, -1).numpy().astype(np.uint32)
+    return nat.words((v[0::2] | (v[1::2] << 16)).T.reshape(-1))
+
+
+def _i64s(values) -> ctypes.Array:
+    vals = [int(v) for v in values]
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def toggle_evals_plain(spec: FieldSpec, flags, fps, eq, coeffs
+                       ) -> torch.Tensor:
+    """jolt_tpu/subprotocols/grand_product.py:976-1014, term for term."""
+    f2 = flags.repeat_interleave(2, dim=1)
+    h = f2.shape[-1] // 2
+    one = arith.const_limbs(spec, "r", f2.device).reshape(L, 1, 1)
+    f0, f1 = f2[..., :h], f2[..., h:]
+    p0, p1 = fps[..., :h], fps[..., h:]
+    e0, e1 = eq[..., :h], eq[..., h:]
+    m_f, m_p, m_e = (arith.sub(spec, f1, f0), arith.sub(spec, p1, p0),
+                     arith.sub(spec, e1, e0))
+    cb = coeffs.to(f2.device)[:, :, None]
+    out = []
+    ft, pt, et = f0, p0, e0
+    for t in (0, 2, 3):
+        if t == 2:
+            ft, pt, et = (arith.add(spec, f1, m_f), arith.add(spec, p1, m_p),
+                          arith.add(spec, e1, m_e))
+        elif t == 3:
+            ft, pt, et = (arith.add(spec, ft, m_f), arith.add(spec, pt, m_p),
+                          arith.add(spec, et, m_e))
+        gate = arith.add(spec, arith.mont_mul(spec, ft, pt),
+                         arith.sub(spec, one, ft))
+        per_i = arith.sum_limbs(spec, arith.mont_mul(spec, cb, gate), 0)
+        out.append(arith.sum_limbs(spec, arith.mont_mul(spec, et, per_i),
+                                   -1))
+    return torch.stack(out, dim=1)
+
+
+def toggle_plan(m: int, h: int) -> tuple[int, int]:
+    """K14's launch geometry for m memories and h pair indices: (groups,
+    blocks).  A warp task is a tile of 32 pair indices and a group of the
+    memories (j = g, g + groups, ...); groups is the most whose tasks fit
+    one wave of warps (TOGGLE_WAVE blocks of TOGGLE_WARPS), at most m,
+    evened so that the groups' memories differ by at most one.  The
+    blocks walk the tasks by grid stride, one wave at most."""
+    if not 1 <= m <= TOGGLE_MAX_M or h < 1:
+        raise ValueError(f"toggle_plan: m = {m}, h = {h}")
+    tiles = -(-h // 32)
+    groups = max(1, min(m, TOGGLE_WAVE * TOGGLE_WARPS // tiles))
+    groups = -(-m // -(-m // groups))
+    return groups, min(-(-tiles * groups // TOGGLE_WARPS), TOGGLE_WAVE)
+
+
+def toggle_chunks(m: int) -> list[tuple[int, int]]:
+    """K14's launches for m memories: [j0, j1) slices of at most
+    TOGGLE_MAX_M.  The evaluations are linear in the memories (each
+    slice's launch adds its own coefficients' sum), so their sum mod p
+    over the slices is the whole round's."""
+    return [(j0, min(j0 + TOGGLE_MAX_M, m))
+            for j0 in range(0, m, TOGGLE_MAX_M)]
+
+
+def _last_axis_unit(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last axis must be contiguous, "
+                             f"got strides {t.stride()}")
+
+
+def toggle_evals(spec: FieldSpec, flags: torch.Tensor, fps: torch.Tensor,
+                 eq: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """The toggle round's evaluations at t = 0, 2, 3 -> [16, 3]:
+    sum_i eq_t(i) sum_b c_b (f_t(b // 2, i) p_t(b, i) + 1 - f_t(b // 2, i))
+    over bit-reversed flags [16, m, s], fingerprints [16, 2m, s], eq
+    [16, s] (sibling pairs the contiguous halves) and coeffs [16, 2m].
+    One K14 launch a `toggle_chunks` slice on CUDA tensors."""
+    m, s = flags.shape[1], flags.shape[-1]
+    if (flags.dim() != 3 or tuple(fps.shape) != (L, 2 * m, s)
+            or tuple(eq.shape) != (L, s) or tuple(coeffs.shape) != (L, 2 * m)
+            or flags.shape[0] != L or s < 2 or s % 2):
+        raise ValueError("toggle_evals: expected flags [16, m, s], "
+                         "fingerprints [16, 2m, s], eq [16, s], coeffs "
+                         f"[16, 2m], s even; got {tuple(flags.shape)}, "
+                         f"{tuple(fps.shape)}, {tuple(eq.shape)}, "
+                         f"{tuple(coeffs.shape)}")
+    if _all_cpu(flags, fps, eq, coeffs):
+        return toggle_evals_plain(spec, flags, fps, eq, coeffs)
+    nat.require_cuda("toggle_evals", flags, fps, eq, coeffs)
+    _last_axis_unit("toggle_evals", flags, fps, eq)
+    out = None
+    for j0, j1 in toggle_chunks(m):
+        part = _toggle_launch(spec, flags[:, j0:j1], fps[:, 2 * j0:2 * j1],
+                              eq, coeffs[:, 2 * j0:2 * j1])
+        out = part if out is None else field_addsub(spec, out, part, ADD)
+    return out
+
+
+def _toggle_launch(spec: FieldSpec, flags, fps, eq, coeffs) -> torch.Tensor:
+    """One K14 launch over at most TOGGLE_MAX_M memories."""
+    m, h = flags.shape[1], flags.shape[-1] // 2
+    groups, blocks = toggle_plan(m, h)
+    partials = torch.empty((blocks, 3, 8), dtype=torch.int32,
+                           device=flags.device)
+    out = torch.empty((L, 3), dtype=torch.int32, device=flags.device)
+    strides = _i64s((flags.stride(0), flags.stride(1), fps.stride(0),
+                     fps.stride(1), eq.stride(0), coeffs.stride(0),
+                     coeffs.stride(1)))
+    TOGGLE_EVALS.launch(
+        nat.ptr(flags), nat.ptr(fps), nat.ptr(eq), nat.ptr(coeffs), strides,
+        m, h, groups, blocks, nat.ptr(partials),
+        nat.ptr(_gp_counter(flags.device)), nat.ptr(out), field_words(spec),
+        nat.stream(out), device=out.device)
+    return out
+
+
+def bind_halves_plain(spec: FieldSpec, tensors, r: torch.Tensor) -> list:
+    """jolt_tpu/subprotocols/grand_product.py:1017-1026 (and poly/mle.py
+    bind_top, the reduction's binds): lo + r (hi - lo) on each tensor's
+    halves."""
+    out = []
+    for t in tensors:
+        h = t.shape[-1] // 2
+        lo, hi = t[..., :h], t[..., h:]
+        rb = r.reshape((L,) + (1,) * (t.dim() - 1)).to(t.device)
+        out.append(arith.add(spec, lo, arith.mont_mul(
+            spec, rb, arith.sub(spec, hi, lo))))
+    return out
+
+
+def bind_halves(spec: FieldSpec, tensors, r: torch.Tensor) -> list:
+    """Bind the top variable of each limb tensor [16, ..., n] (n even) to
+    r: new contiguous [16, ..., n/2] = lo + r (hi - lo) on the halves,
+    never in place.  r: Montgomery limbs [16], on the CPU (by value) or on
+    the card (read by the kernel with no host sync).  One K15 launch for
+    up to BIND_MAX tensors on CUDA; a longer list takes a launch per
+    BIND_MAX."""
+    tensors = list(tensors)
+    for t in tensors:
+        if t.dim() < 2 or t.shape[0] != L or t.shape[-1] < 2 \
+                or t.shape[-1] % 2:
+            raise ValueError(f"bind_halves: expected [16, ..., n], n even, "
+                             f"got {tuple(t.shape)}")
+    if _all_cpu(*tensors):
+        return bind_halves_plain(spec, tensors, r)
+    nat.require_cuda("bind_halves", *tensors)
+    rc, rc_dev, r = _challenge_arg("bind_halves", r, tensors[0])
+    outs, views = [], []
+    for t in tensors:
+        st = _strides2d(t, t.shape)
+        if st is None:
+            t = t.contiguous()
+            st = _strides2d(t, t.shape)
+        n = t.shape[-1]
+        rows = t.numel() // (L * n)
+        outs.append(torch.empty(t.shape[:-1] + (n // 2,), dtype=torch.int32,
+                                device=t.device))
+        views.append((t, rows, n // 2, *st))
+    for k0 in range(0, len(views), BIND_MAX):
+        part = views[k0:k0 + BIND_MAX]
+        dst = outs[k0:k0 + BIND_MAX]
+        BIND_HALVES.launch(
+            _i64s(nat.ptr(v[0]) for v in part), _i64s(map(nat.ptr, dst)),
+            _i64s(v[4] for v in part), _i64s(v[3] for v in part),
+            _i64s(v[5] for v in part), _i64s(v[1] for v in part),
+            _i64s(v[2] for v in part), len(part), rc, rc_dev,
+            field_words(spec), nat.stream(dst[0]), device=dst[0].device)
+    return outs
+
+
+def quadratic_evals_plain(spec: FieldSpec, poly, eq) -> torch.Tensor:
+    """jolt_tpu/poly/opening_proof.py:144-154: (eval_0, eval_2) of
+    sum_x P(t, x) eq(t, x) -> [16, 2]."""
+    n = poly.shape[-1]
+    p_lo, p_hi = poly[..., : n // 2], poly[..., n // 2:]
+    e_lo, e_hi = eq[..., : n // 2], eq[..., n // 2:]
+    ev0 = arith.sum_limbs(spec, arith.mont_mul(spec, p_lo, e_lo), -1)
+    p2 = arith.add(spec, p_hi, arith.sub(spec, p_hi, p_lo))
+    e2 = arith.add(spec, e_hi, arith.sub(spec, e_hi, e_lo))
+    ev2 = arith.sum_limbs(spec, arith.mont_mul(spec, p2, e2), -1)
+    return torch.stack([ev0, ev2], dim=1)
+
+
+def reduction_evals_plain(spec: FieldSpec, polys, eqs, coeffs, k
+                          ) -> torch.Tensor:
+    """jolt_tpu/poly/opening_proof.py:56-67, term for term: from k, each
+    pair's quadratic evaluations times its coefficient added."""
+    dev = polys[0].device
+    ev0 = ev2 = k.reshape(L).to(dev)
+    for a, (p, q) in enumerate(zip(polys, eqs)):
+        pair = quadratic_evals_plain(spec, p, q)
+        c = coeffs[:, a].to(dev)
+        ev0 = arith.add(spec, ev0, arith.mont_mul(spec, c, pair[:, 0]))
+        ev2 = arith.add(spec, ev2, arith.mont_mul(spec, c, pair[:, 1]))
+    return torch.stack([ev0, ev2], dim=1)
+
+
+def reduction_plan(h: int) -> int:
+    """K16's blocks for pairs of 2h entries: a thread a pair index (and
+    grid stride past one resident wave)."""
+    if h < 1:
+        raise ValueError(f"reduction_plan: h = {h}")
+    return min(-(-h // OPS_THREADS), REDUCE_WAVE)
+
+
+def reduction_evals(spec: FieldSpec, polys, eqs, coeffs: torch.Tensor,
+                    k: torch.Tensor) -> torch.Tensor:
+    """The opening reduction's round over A active pairs (P_a, eq_a), all
+    [16, n] (n = 2^remaining, even): [16, 2] = (k + sum_a c_a sum_x
+    P_a(0, x) eq_a(0, x), k + sum_a c_a sum_x P_a(2, x) eq_a(2, x)).
+    coeffs [16, A] and k [16]: Montgomery limbs on the CPU (host_limbs),
+    passed by value.  One K16 launch per REDUCE_MAX_PAIRS pairs on CUDA
+    (the launches' outputs added mod p, k in the first)."""
+    polys, eqs = list(polys), list(eqs)
+    A = len(polys)
+    if A < 1 or len(eqs) != A or tuple(coeffs.shape) != (L, A):
+        raise ValueError(f"reduction_evals: {A} polynomials, {len(eqs)} eq "
+                         f"tables, coeffs {tuple(coeffs.shape)}")
+    n = polys[0].shape[-1]
+    for t in polys + eqs:
+        if tuple(t.shape) != (L, n):
+            raise ValueError("reduction_evals: every pair must be [16, n] "
+                             f"of one length n = {n}, got {tuple(t.shape)}")
+    if n < 2 or n % 2:
+        raise ValueError(f"reduction_evals: length {n} must be even")
+    if _all_cpu(*polys, *eqs):
+        return reduction_evals_plain(spec, polys, eqs, coeffs, k)
+    nat.require_cuda("reduction_evals", *polys, *eqs)
+    _last_axis_unit("reduction_evals", *polys, *eqs)
+    cw = _words_by_value("reduction_evals", coeffs)
+    kw = _words_by_value("reduction_evals", k.reshape(L, 1))
+    dev, h = polys[0].device, n // 2
+    blocks = reduction_plan(h)
+    out = None
+    for q0 in range(0, A, REDUCE_MAX_PAIRS):
+        q1 = min(q0 + REDUCE_MAX_PAIRS, A)
+        part = torch.empty((L, 2), dtype=torch.int32, device=dev)
+        partials = torch.empty((blocks, 2, 8), dtype=torch.int32, device=dev)
+        REDUCTION_EVALS.launch(
+            _i64s(map(nat.ptr, polys[q0:q1])), _i64s(map(nat.ptr, eqs[q0:q1])),
+            _i64s(t.stride(0) for t in polys[q0:q1]),
+            _i64s(t.stride(0) for t in eqs[q0:q1]),
+            nat.words(cw[8 * q0:8 * q1]), q1 - q0, h,
+            kw if q0 == 0 else nat.words([0] * 8), blocks, nat.ptr(partials),
+            nat.ptr(_gp_counter(dev)), nat.ptr(part), field_words(spec),
+            nat.stream(part), device=dev)
+        out = part if out is None else field_addsub(spec, out, part, ADD)
+    return out
+
+
+def rlc_plain(spec: FieldSpec, polys, coeffs, n: int) -> torch.Tensor:
+    """jolt_tpu/poly/opening_proof.py:30-52, term for term: each
+    polynomial zero-padded at the tail to n, then sum_i c_i P_i."""
+    out = None
+    for i, p in enumerate(polys):
+        if p.shape[-1] < n:
+            p = torch.cat([p, p.new_zeros((L, n - p.shape[-1]))], dim=1)
+        term = arith.mont_mul(spec, coeffs[:, i:i + 1].to(p.device), p)
+        out = term if out is None else arith.add(spec, out, term)
+    return out
+
+
+def rlc(spec: FieldSpec, polys, coeffs: torch.Tensor, n: int
+        ) -> torch.Tensor:
+    """sum_i c_i P_i over [16, n], each P_i [16, n_i] (n_i <= n) read as
+    zero past n_i; views with a contiguous last axis (a column of
+    [16, k, T]) are read in place.  coeffs [16, len(polys)]: Montgomery
+    limbs on the CPU (host_limbs), passed by value.  One K17 launch per
+    RLC_MAX polynomials on CUDA, each after the first adding its sum into
+    the output."""
+    polys = list(polys)
+    if not polys or tuple(coeffs.shape) != (L, len(polys)):
+        raise ValueError(f"rlc: {len(polys)} polynomials, coeffs "
+                         f"{tuple(coeffs.shape)}")
+    for p in polys:
+        if p.dim() != 2 or p.shape[0] != L or not 1 <= p.shape[-1] <= n:
+            raise ValueError(f"rlc: expected [16, n_i] with n_i <= {n}, got "
+                             f"{tuple(p.shape)}")
+    if _all_cpu(*polys):
+        return rlc_plain(spec, polys, coeffs, n)
+    nat.require_cuda("rlc", *polys)
+    _last_axis_unit("rlc", *polys)
+    cw = _words_by_value("rlc", coeffs)
+    out = torch.empty((L, n), dtype=torch.int32, device=polys[0].device)
+    prev = ctypes.c_void_p(None)
+    for i0 in range(0, len(polys), RLC_MAX):
+        part = polys[i0:i0 + RLC_MAX]
+        RLC.launch(_i64s(map(nat.ptr, part)), _i64s(p.stride(0) for p in part),
+                   _i64s(p.shape[-1] for p in part),
+                   nat.words(cw[8 * i0:8 * (i0 + len(part))]), len(part), n,
+                   prev, nat.ptr(out), field_words(spec), nat.stream(out),
+                   device=out.device)
+        prev = nat.ptr(out)
+    return out

@@ -10,8 +10,10 @@ one batching sumcheck reduces them to a single PCS opening:
                     then the gamma-powers joint polynomial opened once
   verifier mirror:  homomorphic commitment combination + claim checks
 
-With host Fiat-Shamir each round pulls the active pairs' two evaluations
-and binds on the device; with device Fiat-Shamir (the default for CUDA
+Each round's batched evaluations are one K16 launch and its binds one
+K15 launch (field/kernels.py), and every RLC one K17 launch.  With host
+Fiat-Shamir each round pulls the two batched evaluations and binds on the
+device; with device Fiat-Shamir (the default for CUDA
 tensors, grand_product._use_device_fs) the whole reduction runs on the
 device and the host replays it once (`_prove_reduction_device_fs`).
 On a mesh (`reduce_and_prove(..., mesh=)`), each opening's polynomial and
@@ -27,13 +29,14 @@ from typing import Sequence
 import torch
 
 from ..field import device as fd
+from ..field import kernels as fk
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
 from ..parallel import sharding as sh
-from ..poly.mle import bind_top, eq_evaluate_host
+from ..poly.mle import eq_evaluate_host
 from ..poly.unipoly import CompressedUniPoly, UniPoly
 from ..subprotocols import fs_device as fsd
-from ..subprotocols.grand_product import _use_device_fs
+from ..subprotocols.grand_product import _bind_one, _use_device_fs
 from ..subprotocols.sumcheck import SumcheckInstanceProof, VerificationError
 from ..transcript import Transcript
 
@@ -41,42 +44,45 @@ from ..transcript import Transcript
 def rlc_polys(spec: FieldSpec, polys: Sequence[torch.Tensor],
               coeffs: Sequence[FElt], pad_to: int | None = None
               ) -> torch.Tensor:
-    """sum_i coeffs[i] * polys[i] over [16, n], zero-padding shorter
-    polynomials at the tail."""
+    """sum_i coeffs[i] * polys[i] over [16, n], shorter polynomials read
+    as zero at the tail (K17, field/kernels.py `rlc`: columns of wider
+    tensors read in place, the coefficients by value)."""
     n = pad_to or max(p.shape[-1] for p in polys)
-    dev = polys[0].device
-    coeffs_dev = fd.ints_to_device(spec, [c.v for c in coeffs], dev)
-    out = None
-    for i, p in enumerate(polys):
-        term = fd.fmul(spec, coeffs_dev[:, i:i + 1], p)
-        if term.shape[-1] < n:
-            term = torch.cat([term, fd.zeros(spec, (n - term.shape[-1],), dev)],
-                             dim=1)
-        out = term if out is None else fd.fadd(spec, out, term)
-    return out
+    return fk.rlc(spec, polys, fk.host_limbs(spec, [c.v for c in coeffs]), n)
 
 
-def _quadratic_evals(spec: FieldSpec, poly: torch.Tensor, eq: torch.Tensor
-                     ) -> torch.Tensor:
-    """(eval_0, eval_2) of sum_x P(t,x) * eq(t,x) -> [16, 2]."""
-    n = poly.shape[-1]
-    p_lo, p_hi = poly[..., : n // 2], poly[..., n // 2:]
-    e_lo, e_hi = eq[..., : n // 2], eq[..., n // 2:]
-    ev0 = fd.fsum(spec, fd.fmul(spec, p_lo, e_lo), axis=-1)
-    p2 = fd.fadd(spec, p_hi, fd.fsub(spec, p_hi, p_lo))
-    e2 = fd.fadd(spec, e_hi, fd.fsub(spec, e_hi, e_lo))
-    ev2 = fd.fsum(spec, fd.fmul(spec, p2, e2), axis=-1)
-    return torch.stack([ev0, ev2], dim=1)
+def _round_evals(spec: FieldSpec, polys: list, eqs: list,
+                 coeffs: torch.Tensor, k: torch.Tensor, k_dev: torch.Tensor
+                 ) -> torch.Tensor:
+    """One reduction round's batched evaluations (eval_0, eval_2) ->
+    [16, 2] over the active pairs, all of one length: k + sum_a c_a *
+    (_quadratic_evals of pair a), one K16 launch (coeffs [16, A] and k
+    [16] as host limbs, by value).  On a mesh the pairs are split alike:
+    K16 a shard with no constant, the shards' sums folded, then k_dev
+    (k on the first device) added once."""
+    if not sh.is_sharded(polys[0]):
+        return fk.reduction_evals(spec, polys, eqs, coeffs, k)
+    A, zero = len(polys), torch.zeros_like(k)
+    folded = sh.round_evals(
+        spec, lambda *ts: fk.reduction_evals(spec, ts[:A], ts[A:], coeffs,
+                                             zero), (*polys, *eqs))
+    return fd.fadd(spec, folded, k_dev[:, None])
 
 
-def _pair_evals(spec: FieldSpec, poly, eq) -> torch.Tensor:
-    """_quadratic_evals, per shard and folded when the pair is sharded."""
-    return sh.round_evals(spec, lambda p, e: _quadratic_evals(spec, p, e),
-                          (poly, eq))
-
-
-def _bind_pair(spec: FieldSpec, poly, eq, r: torch.Tensor) -> tuple:
-    return sh.bind_hypercube(spec, (poly, eq), r, bind_top)
+def _bind_active(spec: FieldSpec, bound: list, bound_eq: list, active,
+                 r: torch.Tensor) -> None:
+    """Bind the active pairs' top variable to r, in place in the lists:
+    all 2A tensors in one K15 launch (into new tensors: the accumulated
+    polynomials stay intact for the joint polynomial), or shard by shard
+    on a mesh."""
+    ts = [bound[i] for i in active] + [bound_eq[i] for i in active]
+    if sh.is_sharded(ts[0]):
+        out = sh.bind_hypercube(spec, ts, r, _bind_one)
+    else:
+        out = fk.bind_halves(spec, ts, r)
+    A = len(active)
+    for i, p, q in zip(active, out[:A], out[A:]):
+        bound[i], bound_eq[i] = p, q
 
 
 def _final_claims(spec: FieldSpec, bound) -> list[FElt]:
@@ -138,84 +144,76 @@ class ProverOpeningAccumulator:
                  for o in self.openings]
         bound_eq = [sh.maybe_shard_hypercube(mesh, o.eq_poly)
                     for o in self.openings]
-        if _use_device_fs(self.openings[0].polynomial.device):
-            return self._prove_reduction_device_fs(coeffs, e, max_num_vars,
-                                                   transcript, bound,
-                                                   bound_eq)
+        # each round's constant: the claims not yet active, scaled
+        inacts = []
+        for rnd in range(max_num_vars):
+            remaining = max_num_vars - rnd
+            inact = zero
+            for co, o in zip(coeffs, self.openings):
+                if remaining > len(o.opening_point):
+                    rem_vars = remaining - len(o.opening_point) - 1
+                    inact = inact + FElt(1 << rem_vars, spec) * o.claim * co
+            inacts.append(inact.v)
+        dev = self.openings[0].polynomial.device
+        coeffs_h = fk.host_limbs(spec, [c.v for c in coeffs])
+        inacts_h = fk.host_limbs(spec, inacts)              # [16, R]
+        inacts_dev = inacts_h.to(dev) if mesh is not None else inacts_h
+
+        def round_evals(rnd: int) -> torch.Tensor:
+            active = self._active(max_num_vars - rnd)
+            return _round_evals(spec, [bound[i] for i in active],
+                                [bound_eq[i] for i in active],
+                                coeffs_h[:, active], inacts_h[:, rnd],
+                                inacts_dev[:, rnd])
+
+        if _use_device_fs(dev):
+            return self._prove_reduction_device_fs(
+                e, max_num_vars, transcript, bound, bound_eq, round_evals)
 
         r: list[FElt] = []
         compressed: list[CompressedUniPoly] = []
         for rnd in range(max_num_vars):
-            remaining = max_num_vars - rnd
-            active = [i for i, o in enumerate(self.openings)
-                      if remaining <= len(o.opening_point)]
-            pairs = fd.device_to_ints(spec, torch.stack(
-                [_pair_evals(spec, bound[i], bound_eq[i])
-                 for i in active], dim=1)).tolist()            # [P][2]
-            ev0 = ev2 = zero
-            for i, (e0, e2) in zip(active, pairs):
-                ev0 = ev0 + coeffs[i] * FElt(int(e0), spec)
-                ev2 = ev2 + coeffs[i] * FElt(int(e2), spec)
-            for i, o in enumerate(self.openings):
-                if i not in active:
-                    rem_vars = remaining - len(o.opening_point) - 1
-                    scaled = FElt(1 << rem_vars, spec) * o.claim * coeffs[i]
-                    ev0 = ev0 + scaled
-                    ev2 = ev2 + scaled
+            ev0, ev2 = (FElt(int(v), spec) for v in fd.device_to_ints(
+                spec, round_evals(rnd)).tolist())
             round_poly = UniPoly.from_evals([ev0, e - ev0, ev2])
             cpoly = round_poly.compress()
             cpoly.append_to_transcript(transcript)
             r_j = transcript.challenge_scalar()
             r.append(r_j)
             r_dev = fd.scalar_to_device(spec, r_j.v, bound[0].device)
-            for i in active:
-                bound[i], bound_eq[i] = _bind_pair(spec, bound[i],
-                                                   bound_eq[i], r_dev)
+            _bind_active(spec, bound, bound_eq,
+                         self._active(max_num_vars - rnd), r_dev)
             e = round_poly.evaluate(r_j)
             compressed.append(cpoly)
         return SumcheckInstanceProof(compressed), r, _final_claims(spec,
                                                                    bound)
 
-    def _prove_reduction_device_fs(self, coeffs: list[FElt], e: FElt,
-                                   max_num_vars: int, transcript: Transcript,
-                                   bound: list, bound_eq: list):
+    def _active(self, remaining: int) -> list[int]:
+        """The openings whose polynomials are in play with `remaining`
+        variables left."""
+        return [i for i, o in enumerate(self.openings)
+                if remaining <= len(o.opening_point)]
+
+    def _prove_reduction_device_fs(self, e: FElt, max_num_vars: int,
+                                   transcript: Transcript, bound: list,
+                                   bound_eq: list, round_evals):
         """The reduction sumcheck with the Fiat-Shamir chain on the device
         (jolt_tpu's opening_proof.py:254-380, shrinking instead of masked):
-        each round's quadratic evaluations, batched with the coefficients
-        and the not-yet-active claims' contribution (a host constant per
-        round, folded in as a device scalar), go to K9 with no host sync;
-        one pull and one host replay at the end."""
+        each round's evaluations, batched with the coefficients and the
+        not-yet-active claims' contribution (round_evals: one K16 launch),
+        go to K9 and the active pairs bind to its challenge (one K15
+        launch), with no host sync; one pull and one host replay at the
+        end."""
         spec = self.spec
         dev = self.openings[0].polynomial.device
-        coeffs_dev = fd.ints_to_device(spec, [c.v for c in coeffs], dev)
-        inacts = []
-        for rnd in range(max_num_vars):
-            remaining = max_num_vars - rnd
-            inact = FElt(0, spec)
-            for co, o in zip(coeffs, self.openings):
-                if remaining > len(o.opening_point):
-                    rem_vars = remaining - len(o.opening_point) - 1
-                    inact = inact + FElt(1 << rem_vars, spec) * o.claim * co
-            inacts.append(inact.v)
-        inacts_dev = fd.ints_to_device(spec, inacts, dev)       # [16, R]
         state = fsd.state_to_device(transcript, dev)
         prev = fd.scalar_to_device(spec, e.v, dev)
         comps = []
         for rnd in range(max_num_vars):
-            remaining = max_num_vars - rnd
-            active = [i for i, o in enumerate(self.openings)
-                      if remaining <= len(o.opening_point)]
-            pairs = torch.stack([_pair_evals(spec, bound[i], bound_eq[i])
-                                 for i in active], dim=1)      # [16, A, 2]
-            ca = torch.cat([coeffs_dev[:, i:i + 1] for i in active], dim=1)
-            evals = fd.fadd(spec, fd.fsum(spec, fd.fmul(
-                spec, ca[:, :, None], pairs), axis=0),
-                inacts_dev[:, rnd:rnd + 1])                     # [16, 2]
-            comp, rj, prev, state = fsd.fs_round(spec, evals, prev, state,
-                                                 2, True)
-            for i in active:
-                bound[i], bound_eq[i] = _bind_pair(spec, bound[i],
-                                                   bound_eq[i], rj)
+            comp, rj, prev, state = fsd.fs_round(spec, round_evals(rnd), prev,
+                                                 state, 2, True)
+            _bind_active(spec, bound, bound_eq,
+                         self._active(max_num_vars - rnd), rj)
             comps.append(comp)
         compressed, r = fsd.replay_and_check(
             spec, fd.device_to_ints(spec, torch.stack(comps, dim=1)).tolist(),

@@ -19,14 +19,16 @@ to pair size 2; the TPU-only mechanisms (masked fixed-shape rounds,
 class-buffered trees, host tails) stay behind.  The toggled grand product
 (Lasso's flag-gated read/write multisets, grand_product.rs:1049-1546) adds
 its toggle layer below the dense layers, also on the device to the last
-round.
+round: a toggle round is one K14 launch (its evaluations) and one K15
+launch (its bind), field/kernels.py `toggle_evals` and `bind_halves`.
 
 Fiat-Shamir (jolt_tpu's JOLT_TPU_DEVICE_FS and JOLT_TPU_CHAIN, with the
 same meanings; both default on where the prover's tensors are on a CUDA
 device and off on the CPU):
   - host: each round pulls its evaluations and uploads its challenge;
-  - device (`_use_device_fs`): each layer's rounds run K2 -> K9 -> K3 with
-    no host sync (subprotocols/fs_device.py), one pull per layer;
+  - device (`_use_device_fs`): each layer's rounds run K2 -> K9 -> K3
+    (a toggle round K14 -> K9 -> K15) with no host sync
+    (subprotocols/fs_device.py), one pull per layer;
   - chained (`_use_chain`): a whole grand product also draws its batching
     coefficients, builds its eq tables and appends its claims on the
     device (K8), with one pull at the end and one host replay, which must
@@ -55,7 +57,7 @@ from ..field import kernels as fk
 from ..field.host import FElt
 from ..field.spec import FieldSpec, fr_spec
 from ..parallel import sharding as sh
-from ..poly.mle import bind_top, bitrev_indices, eq_evals_device_br
+from ..poly.mle import bitrev_indices, eq_evals_device_br
 from ..poly.unipoly import CompressedUniPoly, UniPoly
 from ..transcript import Transcript
 from ..utils.profiling import span
@@ -450,46 +452,24 @@ def _toggle_cubic_evals(spec: FieldSpec, flags: torch.Tensor,
 
     flags [16, m, s], fingerprints [16, 2m, s] and eq [16, s] are
     bit-reversed along the hypercube, so sibling pairs are the contiguous
-    halves; fingerprint b takes flag row b // 2."""
-    f2 = flags.repeat_interleave(2, dim=1)
-    h = f2.shape[-1] // 2
-    one = fd.ones(spec, (1, 1), f2.device)
-    f0, f1 = f2[..., :h], f2[..., h:]
-    p0, p1 = fingerprints[..., :h], fingerprints[..., h:]
-    e0, e1 = eq[..., :h], eq[..., h:]
-    m_f = fd.fsub(spec, f1, f0)
-    m_p = fd.fsub(spec, p1, p0)
-    m_e = fd.fsub(spec, e1, e0)
-    out = []
-    ft, pt, et = f0, p0, e0
-    for t in (0, 2, 3):
-        if t == 2:
-            ft, pt, et = (fd.fadd(spec, f1, m_f), fd.fadd(spec, p1, m_p),
-                          fd.fadd(spec, e1, m_e))
-        elif t == 3:
-            ft, pt, et = (fd.fadd(spec, ft, m_f), fd.fadd(spec, pt, m_p),
-                          fd.fadd(spec, et, m_e))
-        gate = fd.fadd(spec, fd.fmul(spec, ft, pt), fd.fsub(spec, one, ft))
-        per_i = fd.fsum(spec, fd.fmul(spec, coeffs[:, :, None], gate), axis=0)
-        out.append(fd.fsum(spec, fd.fmul(spec, et, per_i), axis=-1))
-    return torch.stack(out, dim=1)
+    halves; fingerprint b takes flag row b // 2 (one K14 launch,
+    field/kernels.py `toggle_evals`)."""
+    return fk.toggle_evals(spec, flags, fingerprints, eq, coeffs)
+
+
+def _bind_one(spec: FieldSpec, t: torch.Tensor, r: torch.Tensor):
+    """One tensor's top variable bound (K15), a shard's bind on a mesh."""
+    return fk.bind_halves(spec, (t,), r)[0]
 
 
 def _toggle_bind(spec: FieldSpec, flags, fingerprints, eq, r: torch.Tensor):
     """Bind the bottom variable of flags/fingerprints/eq: contiguous halves
-    (bit-reversed), new = lo + r * (hi - lo): bind_top's pairs, shard by
-    shard on a mesh (cyclic layout)."""
+    (bit-reversed), new = lo + r * (hi - lo): bind_top's pairs, all three
+    in one K15 launch, or shard by shard on a mesh (cyclic layout)."""
     if sh.is_sharded(flags):
         return sh.bind_hypercube(spec, (flags, fingerprints, eq), r,
-                                 bind_top)
-
-    def bb(t):
-        h = t.shape[-1] // 2
-        lo, hi = t[..., :h], t[..., h:]
-        rb = r.reshape((fd.L,) + (1,) * (t.dim() - 1))
-        return fd.fadd(spec, lo, fd.fmul(spec, rb, fd.fsub(spec, hi, lo)))
-
-    return bb(flags), bb(fingerprints), bb(eq)
+                                 _bind_one)
+    return tuple(fk.bind_halves(spec, (flags, fingerprints, eq), r))
 
 
 class ToggledBatchedGrandProduct:

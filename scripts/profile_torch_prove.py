@@ -26,8 +26,12 @@ One warm-up prove and one unprofiled prove, then:
   1. one prove under torch.profiler (CPU and CUDA activities): wall time,
      the time the card spent in kernels (the union of their intervals),
      its idle share, device time by kernel name, and the summed device
-     time and launches of each of the port's kernels (K1-K11 and the
-     primary round);
+     time and launches of each of the port's kernels (K1-K11, the
+     primary round and K14-K17); with --spans, that prove runs with the
+     profiling spans on (utils/profiling.py: each syncs the card on
+     entry and exit, so a span's kernels run inside its interval), and
+     each span's calls, wall ms and device ms (the union of the kernel
+     intervals inside its intervals) are printed;
   2. one prove under cProfile: host time by function (cumulative), which
      names the protocol phases (witness, commit, sumchecks, memory
      checking, openings) and the host work inside them (transcript, limb
@@ -106,6 +110,28 @@ def port_kernels(nat) -> dict[str, tuple[str, str]]:
         fns.setdefault(k.function, [k.mangled, []])[1].append(k.name)
     return {f"{'+'.join(names)} {fn}": (fn, mangled)
             for fn, (mangled, names) in fns.items()}
+
+
+def span_device_ms(prof, kernels, names, card: str, tag: str) -> None:
+    """Each span's calls, wall ms and device ms in the profiled prove:
+    the union of the kernel intervals clipped to its intervals (its
+    record_function ranges on the host; the spans sync the card on entry
+    and exit)."""
+    import torch
+    ranges: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in names:
+            ranges.setdefault(e.name, []).append((e.time_range.start,
+                                                  e.time_range.end))
+    ks = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    print(f"spans of the profiled prove {tag}: calls, wall ms, device ms "
+          f"[{card}]:")
+    for name, rs in sorted(ranges.items(), key=lambda kv: kv[0]):
+        wall = sum(e - s for s, e in rs) / 1e3
+        dev = sum(_union_us((max(a, s), min(b, e)) for a, b in ks
+                            if a < e and b > s) for s, e in rs) / 1e3
+        print(f"  {name}: {len(rs)} calls, {wall:.2f} ms wall, {dev:.3f} "
+              f"ms on the card")
 
 
 def keep_calls(prove, fk, wrapper_name: str, copy) -> list:
@@ -296,6 +322,9 @@ def main() -> None:
                     help="profile K2's calls of one prove alone (above)")
     ap.add_argument("--replay-k11", action="store_true",
                     help="profile K11's calls of one prove alone (above)")
+    ap.add_argument("--spans", action="store_true",
+                    help="the profiled prove with the spans on: each "
+                    "span's device ms (above)")
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose jolt_tpu_torch is run")
     args = ap.parse_args()
@@ -377,11 +406,21 @@ def main() -> None:
 
     # 1. the card's view
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_s = prove()
+    from jolt_tpu_torch.utils import profiling
+    profiling.reset()
+    profiling.enable(args.spans)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_s = prove()
+    finally:
+        profiling.enable(False)
+    # a span's record_function range also shows on the device's timeline
+    # (a GPU user annotation of its name): not a kernel
+    spans = {name for name, *_ in profiling.cumulative()}
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in spans]
     busy_s = _union_us((e.time_range.start, e.time_range.end)
                        for e in kernels) / 1e6
     by_name: dict[str, list[float]] = {}
@@ -400,6 +439,8 @@ def main() -> None:
         hits = [v for k, v in by_name.items() if any(p in k for p in pats)]
         print(f"  {label}: {sum(ms for ms, _ in hits):.2f} ms in "
               f"{sum(n for _, n in hits)} launches")
+    if args.spans:
+        span_device_ms(prof, kernels, spans, card, tag)
 
     # 2. the host's view
     pr = cProfile.Profile()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernels, one checkout at a time, by one method.
 
-    python3 scripts/time_kernels.py [--root DIR] [--only fs|round|sum]
+    python3 scripts/time_kernels.py [--root DIR] [--only fs|round|sum|rounds]
 
 on a CUDA card.  Imports jolt_tpu_torch from DIR (default: this
 checkout), builds its kernel libraries, and times each kernel wrapper with
@@ -25,7 +25,20 @@ that the card's hold outlasts the host's enqueue of the older round's 50
 launches.  `--only sum` builds the field programs' library alone, prints
 K11's registers and spills (ptxas) and times K11 (`field_sum`) at
 chip_smoke.py's phase-2 shapes: [16, 2^23] and [16, 2^20] along -1, the
-leading axis of [16, 110, 2^15], [16, 55, 1] and [16, 3] along -1.  The
+leading axis of [16, 110, 2^15], [16, 55, 1] and [16, 3] along -1.
+`--only rounds` times the toggled grand product's round and the opening reduction's, with its RLC, by the
+checkout's functions at the sha2-chain prove's shapes (rv32i_vm(), T =
+2^16): `grand_product._toggle_cubic_evals` and `_toggle_bind` at the
+first toggle round (flags [16, 55, 2^16] Montgomery 0/1, fingerprints
+[16, 110, 2^16], the challenge on the card), all 16 toggle rounds (evals
+and bind, down to s = 2) by the host clock to a sync, `opening_proof.
+rlc_polys` at the first append (85 columns of [16, 55, 2^16], [16, 29,
+2^16] and a [16, 2^16], read in place where the checkout does) and at
+HyperKZG's (16 polynomials of 2^16 .. 2, padded to 2^16), and the
+reduction sumcheck (`prove_batch_opening_reduction`, 16 rounds with
+device Fiat-Shamir over 4 openings of 2^16 and one of 2^10, its pull and
+host replay included) by the host clock; each row with the launches of
+one call.  The
 wrappers' signatures are the same in every checkout of
 the port, so two checkouts timed in turns on one card (A, B, B, A)
 compare by the same clock and the same method.
@@ -54,9 +67,11 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="checkout whose jolt_tpu_torch is timed")
-    ap.add_argument("--only", choices=("all", "fs", "round", "sum"),
+    ap.add_argument("--only", choices=("all", "fs", "round", "sum",
+                                       "rounds"),
                     default="all", help="fs: K8 and K9 alone; round: the "
-                    "primary round; sum: K11")
+                    "primary round; sum: K11; rounds: the toggle and "
+                    "reduction rounds and the RLC")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -107,6 +122,10 @@ def main() -> None:
         ms[label] = smoke.event_ms(fn, 10)
         print(f"{label}: {ms[label]:.4f} ms", flush=True)
 
+    if args.only == "rounds":
+        sumcheck_rows(ms, smoke, fe, FR, dev)
+        print(json.dumps({"root": str(args.root), "card": card, "ms": ms}))
+        return
     if args.only == "round":
         round_rows(ms, smoke, fe, FR, dev)
         print(json.dumps({"root": str(args.root), "card": card, "ms": ms}))
@@ -164,6 +183,86 @@ def round_rows(ms, smoke, fe, FR, dev):
         ms[label] = smoke.event_ms(lambda: fn(pre, *ts), 5, warm=True)
         print(f"{label}: {ms[label]:.4f} ms, {launches} launches a round",
               flush=True)
+
+
+def sumcheck_rows(ms, smoke, fe, FR, dev):
+    """The toggle round, the reduction sumcheck and the RLC at the sha2
+    prove's shapes, by the checkout's functions (see the docstring)."""
+    import random
+    import time
+    import torch
+    from jolt_tpu_torch import _native as nat
+    from jolt_tpu_torch.field import device as fd
+    from jolt_tpu_torch.field.host import FElt
+    from jolt_tpu_torch.poly import opening_proof as op
+    from jolt_tpu_torch.subprotocols import grand_product as gp
+    from jolt_tpu_torch.transcript import Transcript
+
+    def launches(fn):
+        before = sum(nat.launch_counts().values())
+        fn()
+        torch.cuda.synchronize()
+        return sum(nat.launch_counts().values()) - before
+
+    def timed(label, fn, host=False, reps=5):
+        n = launches(fn)
+        if host:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+            ms[label] = (time.perf_counter() - t0) / reps * 1e3
+        else:
+            ms[label] = smoke.event_ms(fn, 10, warm=True)
+        how = "host clock to a sync" if host else "on the card"
+        print(f"{label}: {ms[label]:.4f} ms ({how}), {n} launches a call",
+              flush=True)
+
+    T, m = 1 << 16, 55
+    rng = random.Random(16)
+    one = fd.scalar_to_device(FR, 1, dev).reshape(16, 1, 1)
+    flags = torch.where(torch.rand(m, T, device=dev)[None] < 0.5, one,
+                        0).to(torch.int32)
+    fps, eq, coeffs = fe(FR, 2 * m, T), fe(FR, T), fe(FR, 2 * m)
+    rj = fe(FR, 1)[:, 0]
+    timed("toggle evals, first round (s = 2^16)",
+          lambda: gp._toggle_cubic_evals(FR, flags, fps, eq, coeffs))
+    timed("toggle bind, first round",
+          lambda: gp._toggle_bind(FR, flags, fps, eq, rj))
+
+    def toggle_rounds():
+        f, p, e = flags, fps, eq
+        while f.shape[-1] > 1:
+            gp._toggle_cubic_evals(FR, f, p, e, coeffs)
+            f, p, e = gp._toggle_bind(FR, f, p, e, rj)
+
+    timed("toggle rounds, all 16 (evals and binds)", toggle_rounds,
+          host=True)
+    E, F_, out = fe(FR, 55, T), fe(FR, 29, T), fe(FR, T)
+    cols = ([fd.col(E, i) for i in range(55)]
+            + [fd.col(F_, i) for i in range(29)] + [out])
+    cs = [FElt(rng.randrange(FR.p), FR) for _ in range(85)]
+    timed("rlc, the first append (85 x 2^16)",
+          lambda: op.rlc_polys(FR, cols, cs))
+    kzg = [fe(FR, T >> j) for j in range(16)]
+    timed("rlc, HyperKZG's (16 polynomials, padded to 2^16)",
+          lambda: op.rlc_polys(FR, kzg, cs[:16], pad_to=T))
+    del E, F_, cols, kzg, flags, fps
+
+    def reduction():
+        acc = op.ProverOpeningAccumulator(FR)
+        for k, n in enumerate((T, T, T, T, 1 << 10)):
+            ell = n.bit_length() - 1
+            acc.openings.append(op.ProverOpening(
+                polys[k], eqs[k], [FElt(7 + j, FR) for j in range(ell)],
+                FElt(11 + k, FR)))
+        acc.prove_batch_opening_reduction(
+            [FElt(3 + k, FR) for k in range(5)], Transcript(b"rounds"))
+
+    polys = [fe(FR, n) for n in (T, T, T, T, 1 << 10)]
+    eqs = [fe(FR, n) for n in (T, T, T, T, 1 << 10)]
+    timed("reduction sumcheck, 16 rounds (4 x 2^16, 1 x 2^10)", reduction,
+          host=True)
 
 
 def fs_row(ms, label, smoke, fn):

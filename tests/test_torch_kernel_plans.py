@@ -1,6 +1,7 @@
-"""K2's launch plan (field/kernels.py `gp_evals_plan`) and the primary
+"""K2's launch plan (field/kernels.py `gp_evals_plan`), the primary
 round kernel's (vm/instruction_lookups.py `round_plan`, the group plan's
-threads and shared memory) on the CPU.
+threads and shared memory) and K14-K17's (`toggle_plan`, `toggle_chunks`,
+`reduction_plan`, the K15, K16 and K17 launches' caps) on the CPU.
 
 The kernel (csrc/gp_pair.cu `gp_pair_evals_kernel`) maps block k, warp w
 and lane to circuit group g = (k % shared) * per_block + w % per_block,
@@ -14,6 +15,12 @@ summed once.  For the round kernel: every (tile, point) of a round is
 taken by exactly one block, the blocks' threads are 32 per group, at most
 256, and the group plan's shared memory, as csrc/collate.cu computes it,
 fits the H100's 227 KB for rv32i_vm(), the narrow VM and the mini VM.
+For K14 (csrc/sumcheck_ops.cu `toggle_evals_kernel`): warp w of block k
+takes tasks k * 8 + w, + 8 * blocks, ..., task = tile * groups + group,
+and group g the memories g, g + groups, ...: every (pair index, memory)
+once.  K16's threads take pair indices by grid stride, K15's and K17's
+elements likewise; the wrappers' launches take each tensor, pair or
+polynomial once.
 """
 import re
 from pathlib import Path
@@ -139,7 +146,7 @@ def test_launch_constants_match_the_sources():
     from jolt_tpu_torch.vm import collation
     from jolt_tpu_torch.vm import instruction_lookups as il  # the round
     csrc = Path(nat.__file__).resolve().parent / "csrc"
-    assert len(nat.KERNELS) == 12
+    assert len(nat.KERNELS) == 16
     for k in nat.KERNELS:
         src = (csrc / f"{k.source}.cu").read_text()
         fn = k.function.split("<")[0]
@@ -149,6 +156,16 @@ def test_launch_constants_match_the_sources():
     c = _constexprs((csrc / "gp_pair.cu").read_text())
     assert (c["GP_WARPS"], c["GP_MIN_BLOCKS"], c["GP_MAX_B"]) == \
         (fk.GP_WARPS, fk.GP_MIN_BLOCKS, fk.GP_MAX_B)
+    c = _constexprs((csrc / "sumcheck_ops.cu").read_text())
+    assert (c["TOGGLE_THREADS"], c["TOGGLE_MIN_BLOCKS"], c["TOGGLE_MAX_M"],
+            c["OPS_THREADS"], c["REDUCE_MIN_BLOCKS"], c["BIND_MAX"],
+            c["REDUCE_MAX_PAIRS"], c["RLC_MAX"]) == \
+        (32 * fk.TOGGLE_WARPS, fk.TOGGLE_MIN_BLOCKS, fk.TOGGLE_MAX_M,
+         fk.OPS_THREADS, fk.REDUCE_MIN_BLOCKS, fk.BIND_MAX,
+         fk.REDUCE_MAX_PAIRS, fk.RLC_MAX)
+    assert fk.TOGGLE_EVALS.threads == 32 * fk.TOGGLE_WARPS
+    assert {k.threads for k in (fk.BIND_HALVES, fk.REDUCTION_EVALS,
+                                fk.RLC)} == {fk.OPS_THREADS}
     c = _constexprs((csrc / "field_ops.cu").read_text())
     assert (c["SUM_THREADS"], c["SUM_MIN_BLOCKS"]) == \
         (fk.SUM_THREADS, fk.SUM_MIN_BLOCKS)
@@ -229,3 +246,83 @@ def test_round_plan_takes_each_point_of_each_tile_once(vm):
             assert split == 1
         if n <= 1 << 8:
             assert split == points
+
+
+def _toggle_visits(m, h, groups, blocks):
+    """Visits per (memory, pair index) of K14's task walk."""
+    tiles = -(-h // 32)
+    visits = np.zeros((m, tiles * 32), dtype=np.int64)
+    nwarps = blocks * fk.TOGGLE_WARPS
+    for w0 in range(nwarps):
+        for task in range(w0, tiles * groups, nwarps):
+            tile, g = divmod(task, groups)
+            visits[g::groups, tile * 32:(tile + 1) * 32] += 1
+    return visits[:, :h]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 29, 55, 81, 110, fk.TOGGLE_MAX_M])
+def test_toggle_plan_covers_each_memory_and_pair_once(m):
+    """Every (memory, pair index) once, at every round size of a toggle
+    GP down to s = 2, within the kernel's limits; about a wave of warps
+    where the tiles allow it, and every group a memory."""
+    for h in [1, 2, 5, 31, 32, 33, 1000, *(1 << k for k in range(6, 17))]:
+        groups, blocks = fk.toggle_plan(m, h)
+        assert 1 <= groups <= m and 1 <= blocks <= fk.TOGGLE_WAVE
+        per = -(-m // groups)
+        assert (groups - 1) * per < m          # no empty group
+        tiles = -(-h // 32)
+        assert tiles * groups <= max(tiles, fk.TOGGLE_WAVE * fk.TOGGLE_WARPS)
+        if tiles * groups <= 1 << 14:
+            assert (_toggle_visits(m, h, groups, blocks) == 1).all(), \
+                (m, h, groups, blocks)
+    assert fk.toggle_plan(55, 1 << 15) == (2, 256)   # a warp a task
+    assert fk.toggle_plan(55, 1)[0] == 55
+
+
+def test_toggle_plan_and_chunks_refuse_or_split():
+    for m, h in ((0, 8), (fk.TOGGLE_MAX_M + 1, 8), (8, 0)):
+        with pytest.raises(ValueError):
+            fk.toggle_plan(m, h)
+    for m in (1, 55, 128, 129, 300):
+        chunks = fk.toggle_chunks(m)
+        assert [j for j0, j1 in chunks for j in range(j0, j1)] == \
+            list(range(m))
+        assert len(chunks) == -(-m // fk.TOGGLE_MAX_M)
+
+
+@pytest.mark.parametrize("h", [1, 2, 255, 256, 257, 1 << 15, 1 << 18,
+                               (1 << 20) + 3])
+def test_reduction_plan_takes_each_pair_index_once(h):
+    blocks = fk.reduction_plan(h)
+    assert 1 <= blocks <= fk.REDUCE_WAVE
+    step = blocks * fk.OPS_THREADS
+    firsts = np.arange(min(step, h))
+    counts = -(-(h - firsts) // step)          # x = first, first + step, ..
+    assert counts.sum() == h
+    if h <= step:
+        assert blocks == -(-h // fk.OPS_THREADS)
+
+
+def test_reduction_evals_chunks_add_up():
+    """Past REDUCE_MAX_PAIRS pairs the launches' outputs add mod p: the
+    plain version over the pairs in two slices, the constant in the
+    first, equals it over all of them (the wrapper's split)."""
+    spec = fr_spec()
+    A, n = fk.REDUCE_MAX_PAIRS + 3, 4
+    g = torch.Generator().manual_seed(9)
+
+    def rand(*shape):
+        vals = torch.randint(0, 1 << 62, (int(np.prod(shape)),), generator=g)
+        return fd.ints_to_device(spec, vals.tolist(), "cpu", shape)
+
+    polys = [rand(n) for _ in range(A)]
+    eqs = [rand(n) for _ in range(A)]
+    coeffs, k = fk.host_limbs(spec, range(7, 7 + A)), fk.host_limbs(spec, [5])
+    zero = fk.host_limbs(spec, [0])[:, 0]
+    q = fk.REDUCE_MAX_PAIRS
+    parts = arith.add(
+        spec, fk.reduction_evals(spec, polys[:q], eqs[:q], coeffs[:, :q],
+                                 k[:, 0]),
+        fk.reduction_evals(spec, polys[q:], eqs[q:], coeffs[:, q:], zero))
+    assert torch.equal(parts, fk.reduction_evals(spec, polys, eqs, coeffs,
+                                                 k[:, 0]))

@@ -21,7 +21,14 @@ extrapolation, the collations, the finisher and the sum of every point)
 at h = 1 to 2^15 on rv32i_vm(), the narrow VM in Fr and Fq and the mini
 VM, on views of wider tensors, twice (its ticket resets), one launch a
 round, and once a shard on a virtual card mesh; each call of K10, K11
-and the round one launch.  Every
+and the round one launch; K14 (the toggle round's evaluations) from
+s = 2 to 2^12, with 0/1 flags, edge residues, 55 and 130 memories (two
+launches), twice (its ticket resets); K15 (the binds) on views, 35
+tensors (two launches), a challenge by value and on the card; K16 (the
+reduction round) at 1, 3 and 17 pairs (two launches) from n = 2 to
+2^12 on edge residues; K17 (the RLC) at unequal lengths, a pad past
+every polynomial, strided columns read in place, and 50 polynomials (two
+launches); and K14, K15 and K16 a shard on a virtual card mesh.  Every
 comparison is of integer
 limbs or transcript bytes: the tolerance is zero.  This file imports nothing of JAX, so on a
 machine without it run it as
@@ -778,3 +785,150 @@ def test_primary_round_on_a_virtual_card_mesh(dev):
     got = _launched(il.PRIMARY_ROUND, lambda: sh.round_evals(
         spec, lambda *x: il.primary_round(pre, *x), shards), 2)
     _equal(got, il.primary_round_plain(pre, *ts))
+
+
+# ---------------------------------------------------------------------------
+# K14-K17: the toggled grand product's round, the opening reduction's
+# round and its RLC
+# ---------------------------------------------------------------------------
+
+def _toggle_ins(spec, dev, m, s, seed, edge=False, flags01=False):
+    mk = _edge if edge else _rand
+    if flags01:
+        g = torch.Generator().manual_seed(seed)
+        bits = torch.randint(0, 2, (m, s), generator=g).bool()
+        one = arith.const_limbs(spec, "r", "cpu").reshape(16, 1, 1)
+        flags = torch.where(bits[None], one, 0).int().to(dev)
+    else:
+        flags = mk(spec, dev, m, s, seed=seed)
+    return (flags, mk(spec, dev, 2 * m, s, seed=seed + 1),
+            mk(spec, dev, s, seed=seed + 2),
+            mk(spec, dev, 2 * m, seed=seed + 3))
+
+
+@pytest.mark.parametrize("m,s,edge,flags01", [
+    (55, 2, True, False), (55, 64, False, True), (3, 2, True, True),
+    (55, 1 << 12, False, True), (29, 1026, True, False)])
+def test_toggle_evals(dev, m, s, edge, flags01):
+    spec = fr_spec()
+    ins = _toggle_ins(spec, dev, m, s, s + m, edge, flags01)
+    for _ in range(2):                  # the ticket is reset
+        _equal(_launched(fk.TOGGLE_EVALS,
+                         lambda: fk.toggle_evals(spec, *ins)),
+               fk.toggle_evals_plain(spec, *ins))
+
+
+def test_toggle_evals_past_the_cap_and_on_views(dev):
+    """130 memories: two launches, their sums added; views of wider
+    tensors (a row stride past the row)."""
+    spec = fr_spec()
+    m = fk.TOGGLE_MAX_M + 2
+    ins = _toggle_ins(spec, dev, m, 8, 40)
+    _equal(_launched(fk.TOGGLE_EVALS, lambda: fk.toggle_evals(spec, *ins), 2),
+           fk.toggle_evals_plain(spec, *ins))
+    wide = [_rand(spec, dev, 4, 3, 16, seed=41), _rand(spec, dev, 8, 3, 16,
+                                                      seed=42)]
+    flags, fps = wide[0][:, :, 1], wide[1][:, :, 2]
+    eq, co = _rand(spec, dev, 16, seed=43), _rand(spec, dev, 8, seed=44)
+    _equal(_launched(fk.TOGGLE_EVALS,
+                     lambda: fk.toggle_evals(spec, flags, fps, eq, co)),
+           fk.toggle_evals_plain(spec, flags, fps, eq, co))
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+def test_bind_halves(dev, on_card):
+    """The toggle's three tensors in one launch; 35 tensors of several
+    shapes, views among them, in two; the challenge by value or read on
+    the card."""
+    spec = fr_spec()
+    r = fd.scalar_to_device(spec, 0x1234567 ** 9, dev if on_card else "cpu")
+    flags, fps, eq, _ = _toggle_ins(spec, dev, 55, 1 << 10, 50, True)
+    _equal(tuple(_launched(fk.BIND_HALVES,
+                           lambda: fk.bind_halves(spec, (flags, fps, eq), r))),
+           tuple(fk.bind_halves_plain(spec, (flags, fps, eq), r)))
+    wide = _rand(spec, dev, 5, 64, seed=51)
+    ts = ([_rand(spec, dev, 2 << (k % 7), seed=60 + k) for k in range(30)]
+          + [wide[:, k] for k in range(5)])
+    got = _launched(fk.BIND_HALVES, lambda: fk.bind_halves(spec, ts, r), 2)
+    _equal(tuple(got), tuple(fk.bind_halves_plain(spec, ts, r)))
+    assert all(g.is_contiguous() for g in got)
+
+
+@pytest.mark.parametrize("A,n", [(1, 2), (3, 64), (3, 1 << 12), (17, 1026)])
+def test_reduction_evals(dev, A, n):
+    spec = fr_spec()
+    polys = [_edge(spec, dev, n, seed=70 + a) for a in range(A)]
+    eqs = [_edge(spec, dev, n, seed=90 + a) for a in range(A)]
+    cs = fk.host_limbs(spec, [spec.p - 1 - a for a in range(A)])
+    k = fk.host_limbs(spec, [spec.p - 2])[:, 0]
+    launches = -(-A // fk.REDUCE_MAX_PAIRS)
+    for _ in range(2):                  # the ticket is reset
+        _equal(_launched(fk.REDUCTION_EVALS, lambda: fk.reduction_evals(
+                   spec, polys, eqs, cs, k), launches),
+               fk.reduction_evals_plain(spec, polys, eqs, cs, k))
+
+
+def test_reduction_evals_refuses_what_the_kernel_does_not_take(dev):
+    spec = fr_spec()
+    a, b = _rand(spec, dev, 8), _rand(spec, dev, 4)
+    cs, k = fk.host_limbs(spec, [1]), fk.host_limbs(spec, [0])[:, 0]
+    with pytest.raises(ValueError, match="one length"):
+        fk.reduction_evals(spec, [a], [b], cs, k)
+    with pytest.raises(ValueError, match="by value"):
+        fk.reduction_evals(spec, [a], [a], cs.to(dev), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        w = _rand(spec, dev, 8, 2)[..., 0]
+        fk.reduction_evals(spec, [w], [a], cs, k)
+
+
+@pytest.mark.parametrize("lengths,n", [
+    ((1 << 12, 1 << 11, 2, 1), 1 << 12), ((1 << 10, 8), 1 << 14),
+    ((5,) * 50, 5), ((1 << 12,) * 85, 1 << 12)])
+def test_rlc(dev, lengths, n):
+    """Unequal lengths; a pad past every polynomial (HyperKZG's); 50
+    polynomials (two launches, the second adding into the first's
+    output); 85 columns of [16, 85, 2^12], read in place (the first
+    append's)."""
+    spec = fr_spec()
+    k = len(lengths)
+    if len(set(lengths)) == 1 and k == 85:
+        wide = _edge(spec, dev, k, n, seed=80)
+        polys = [wide[:, i] for i in range(k)]
+    else:
+        polys = [_edge(spec, dev, m, seed=81 + i) for i, m in
+                 enumerate(lengths)]
+    cs = fk.host_limbs(spec, [spec.p - 1 - i for i in range(k)])
+    _equal(_launched(fk.RLC, lambda: fk.rlc(spec, polys, cs, n),
+                     -(-k // fk.RLC_MAX)),
+           fk.rlc_plain(spec, polys, cs, n))
+
+
+def test_sumcheck_ops_a_shard_on_a_virtual_card_mesh(dev):
+    """The toggle round and the reduction round on a virtual mesh of 2
+    shards on the card (cyclic): K14 and K16 once a shard, folded equal to
+    the unsharded call (K16 with its constant added once, after the
+    fold); K15 once a shard and tensor."""
+    from jolt_tpu_torch.parallel import sharding as sh
+    from jolt_tpu_torch.poly import opening_proof as op
+    from jolt_tpu_torch.subprotocols import grand_product as gp
+    spec = fr_spec()
+    mesh = sh.make_mesh(2, device=dev)
+    ins = _toggle_ins(spec, dev, 5, 64, 100, True)
+    shards = [sh.maybe_shard_hypercube(mesh, t) for t in ins[:3]]
+    got = _launched(fk.TOGGLE_EVALS, lambda: sh.round_evals(
+        spec, lambda f, p, e, c: gp._toggle_cubic_evals(spec, f, p, e, c),
+        (*shards, ins[3])), 2)
+    _equal(got, fk.toggle_evals_plain(spec, *ins))
+    r = fd.scalar_to_device(spec, 77, dev)
+    bound = _launched(fk.BIND_HALVES,
+                      lambda: gp._toggle_bind(spec, *shards, r), 6)
+    _equal(tuple(b.gather() for b in bound),
+           tuple(fk.bind_halves_plain(spec, ins[:3], r)))
+    polys = [_edge(spec, dev, 64, seed=110 + a) for a in range(3)]
+    eqs = [_edge(spec, dev, 64, seed=120 + a) for a in range(3)]
+    cs = fk.host_limbs(spec, [5, 6, 7])
+    k = fk.host_limbs(spec, [spec.p - 3])[:, 0]
+    sp = [sh.maybe_shard_hypercube(mesh, t) for t in polys + eqs]
+    got = _launched(fk.REDUCTION_EVALS, lambda: op._round_evals(
+        spec, sp[:3], sp[3:], cs, k, k.to(dev)), 2)
+    _equal(got, fk.reduction_evals_plain(spec, polys, eqs, cs, k))
